@@ -1,0 +1,62 @@
+"""Model zoo of the port: SEDT and its criterion and post-processing."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..config import SEDTConfig
+from .criterion import DenseTargets, build_weight_dict, empty_targets, set_criterion, total_loss
+from .postprocess import PostProcessResult, postprocess
+from .resnet import ResNetBackbone, num_backbone_channels
+from .sedt import MLP, SEDT
+from .transformer import Transformer, block_diagonal_bias
+
+__all__ = [
+    "SEDT",
+    "MLP",
+    "ResNetBackbone",
+    "Transformer",
+    "DenseTargets",
+    "empty_targets",
+    "set_criterion",
+    "total_loss",
+    "build_weight_dict",
+    "postprocess",
+    "PostProcessResult",
+    "build_model",
+    "resolve_device",
+    "num_backbone_channels",
+    "block_diagonal_bias",
+]
+
+
+def resolve_device(device: Optional[torch.device | str]) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    current CUDA device; a bare ``"cuda"`` also means the current one.
+    Without a GPU the caller must ask for the CPU."""
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' to run on the CPU"
+        )
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+def build_model(cfg: SEDTConfig, device: Optional[torch.device | str] = None,
+                generator: Optional[torch.Generator] = None) -> Tuple[SEDT, Dict[str, float]]:
+    """(SEDT module in eval mode on ``device``, loss-weight dict).
+
+    Parameters are f32 and drawn on the CPU (from ``generator`` when given,
+    so a seed fixes them), then moved to ``device``.
+    """
+    if cfg.model.self_sup:
+        raise NotImplementedError("SP-SEDT is not ported yet")
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        if generator is not None:
+            torch.random.default_generator.set_state(generator.get_state())
+        model = SEDT(cfg.model)
+    return model.to(dev).eval(), build_weight_dict(cfg.model, cfg.loss)
