@@ -5,25 +5,36 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-It builds every kernel of the evaluation path from the sources in the
-repository (kernel K1, ``csrc/hungarian_jv.cu``, with nvcc for sm_90a), then:
+It builds every kernel from the sources in the repository (``csrc/*.cu`` with
+nvcc for sm_90a, all started together), then:
 
-1. prints the card's name and power limit and the build time;
-2. holds K1 against its plain PyTorch version on the card and against scipy
-   on the host, at [192, 10, 20], [192, 20, 20] and [1200, 20, 20] with
-   random, tie-heavy and BIG-padded costs;
-3. runs the evaluation step at the tiny f32 geometry on the CPU and on the
+1. prints the card's name and power limit and each build's time;
+2. holds every kernel against its plain PyTorch version on the card: the
+   Hungarian kernels K1, K2 and K3 also against scipy on the host (random,
+   tie-heavy and BIG-padded costs, K2 against K1 too), the flash-attention
+   kernel K4 at the long clip's two shapes in bf16 and f32, at a ragged tiny
+   shape and at head dims 64 and 128, with a key-padding bias (one clip's
+   keys all padded), a full bias and none;
+3. runs the evaluation step at the tiny f32 geometry, and the tiny long-clip
+   predict (528 encoder tokens, so the card takes K4), on the CPU and on the
    card from the same weights, and compares the two (TF32 off, to 1e-3);
-4. drives the flagship URBAN-SED evaluation step through ``build_model`` and
-   ``make_eval_step``: ResNet-50 DC5, 3+3 layers, d 256, 8 heads, FFN 2048,
-   10 queries plus the ``dec_at`` query, 20 target slots, 500x64 input,
-   batch 64, f32 parameters from a seeded generator, bf16 autocast.  One
-   warm-up step, whose Hungarian cost is re-solved by the plain version,
-   then 20 timed steps with the launch counters set to 0 before and read
-   after;
-5. times K1 and its plain version on the step's own cost with CUDA events;
-6. splits a step into forward, criterion and post-processing, profiles
-   three steps and writes the profiler's table to ``chiprun_out/``.
+4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
+   through ``build_model`` and ``make_eval_step``, with K1's launch count;
+5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
+   3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
+   frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
+   bf16 autocast, seeded waveforms and weights, through ``make_infer`` and
+   ``decode_strong``: K4 must launch 6 times per forward;
+6. drives the long-clip evaluation step (24 problems of 40 x 60 per step):
+   K2 must launch once per step and K4 six times; the step's own cost is
+   solved again by scipy, and by K3 through ``lsap_square`` on the
+   square-padded copy;
+7. times every kernel at the path's shape (device time: CUDA events around a
+   replayed CUDA graph of 20 launches; and per call launched from Python) and
+   its plain version, computes its bound from bytes and operations, and for
+   K4 times the library call ``F.scaled_dot_product_attention``;
+8. profiles the 10 s evaluation step and the long predict into
+   ``chiprun_out/``.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -31,7 +42,9 @@ exits non-zero and prints no result; so does a machine without a CUDA device.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,11 +53,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data.dataset import collate
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
+from sound_event_detection_transformer_tpu_torch.data.scaler import Scaler
 from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
 from sound_event_detection_transformer_tpu_torch.engine import make_eval_step
 from sound_event_detection_transformer_tpu_torch.models import (
@@ -53,22 +68,40 @@ from sound_event_detection_transformer_tpu_torch.models import (
     set_criterion,
     total_loss,
 )
-from sound_event_detection_transformer_tpu_torch.ops import hungarian, matcher
+from sound_event_detection_transformer_tpu_torch.ops import (
+    _build,
+    attention,
+    flash_attention,
+    hungarian,
+    matcher,
+)
+from sound_event_detection_transformer_tpu_torch.ops.frontend import make_frontend_fn
+from sound_event_detection_transformer_tpu_torch.predict_cli import make_infer
 
-# One H100 SXM at its 700 W limit (NVIDIA data sheet): device memory rate and
-# the f32 rate outside the tensor cores, the type K1 computes in.
+# One H100 SXM at its 700 W limit (NVIDIA data sheet): device memory rate, the
+# f32 rate outside the tensor cores (the type the Hungarian kernels compute
+# in) and the tensor cores' dense bf16 rate (the type K4's inputs have).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations per live column in one Dijkstra expansion of K1: two
+BF16_OPS_PER_S = 989e12
+# f32 operations per live column in one Dijkstra expansion of a JV kernel: two
 # subtractions, a compare and two selects to relax, a compare-select for the
 # minimum, two updates of the potentials.
-K1_OPS_PER_COLUMN = 8
+JV_OPS_PER_COLUMN = 8
 K1_SHAPES = [(192, 10, 20), (192, 20, 20), (1200, 20, 20)]
+WIDE_SHAPES = [(24, 40, 60), (192, 10, 20), (8, 100, 100)]  # K2 and K3
 K1_COST_KINDS = ("random", "ties", "big")
+K3_PLAIN_PROBLEMS = 8  # K3's plain version solves one problem at a time: a few per batch
 SECONDS = 10.0
+LONG_SECONDS = 60.0
+LONG_BATCH = 8
 FUSION = (1, 2, 3)
-STEPS = 20  # timed evaluation steps
+STEPS = 10  # timed 10 s evaluation steps
+LONG_STEPS = 5  # timed long-clip evaluation steps
+LONG_FORWARDS = 3  # timed long-clip predict batches
 SEED = 0
+SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
+PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
 
 
 def card_line() -> str:
@@ -78,17 +111,72 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def build_kernels() -> float:
-    """Start every kernel's nvcc build together; returns the wall seconds."""
-    builders = [lambda: hungarian.build_library(verbose=True)]
+def build_kernels() -> dict:
+    """Start every source's nvcc build together; returns each build's seconds
+    and the wall seconds of all under ``"all"``."""
+    def timed(name):
+        t0 = time.perf_counter()
+        _build.build_library(name, verbose=True)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(builders)) as pool:
-        for fut in [pool.submit(b) for b in builders]:
-            fut.result()
-    return time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        futures = {name: pool.submit(timed, name) for name in _build.SOURCES}
+        seconds = {name: fut.result() for name, fut in futures.items()}
+    seconds["all"] = time.perf_counter() - t0
+    return seconds
 
 
-# --------------------------------------------------------------------- K1
+def reset_launch_counts() -> None:
+    for wrapper in (hungarian.lsap_lane, hungarian.lsap_block, hungarian.lsap_square,
+                    flash_attention.flash_attention):
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"K1": hungarian.lsap_lane.launches, "K2": hungarian.lsap_block.launches,
+            "K3": hungarian.lsap_square.launches,
+            "K4": flash_attention.flash_attention.launches}
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean ms of device time per call of ``fn``: ``calls`` calls are captured
+    into one CUDA graph, which is replayed between two events, so the host's
+    time to start a launch (tens of microseconds from Python, more than some
+    of these kernels run) stays out of the figure.  The launches land on the
+    capture stream because the wrappers launch on PyTorch's current stream."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+# ------------------------------------------------- K1, K2, K3: assignment
 
 
 def k1_costs(rng: np.random.RandomState, shape, kind: str) -> np.ndarray:
@@ -116,26 +204,71 @@ def assignment_cost(costs: np.ndarray, out: np.ndarray) -> np.ndarray:
     return total
 
 
-def k1_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
-    """K1 and its plain version against scipy on one batch of problems; returns
-    the largest |cost(K1) - optimum|.  Raises past 1e-2 * max(1, |optimum|)."""
-    cost_dev = torch.from_numpy(costs).to(dev)
-    kernel = hungarian.lsap(cost_dev).cpu().numpy()
-    plain = hungarian.lsap_plain(cost_dev).cpu().numpy()
-    best = np.array([costs[i][linear_sum_assignment(costs[i])].astype(np.float64).sum()
+def scipy_optimum(costs: np.ndarray) -> np.ndarray:
+    return np.array([costs[i][linear_sum_assignment(costs[i])].astype(np.float64).sum()
                      for i in range(costs.shape[0])])
+
+
+def lsap_against_references(kernel, plain, costs: np.ndarray, dev: torch.device,
+                            label: str) -> float:
+    """A rectangular JV kernel and its plain version against scipy on one
+    batch of problems; returns the largest |cost(kernel) - optimum|.  Raises
+    past 1e-2 * max(1, |optimum|): ties may pick other indices, never another
+    cost."""
+    cost_dev = torch.from_numpy(costs).to(dev)
+    got = kernel(cost_dev).cpu().numpy()
+    got_plain = plain(cost_dev).cpu().numpy()
+    best = scipy_optimum(costs)
     tol = 1e-2 * np.maximum(1.0, np.abs(best))
-    err_k = np.abs(assignment_cost(costs, kernel) - best)
-    err_p = np.abs(assignment_cost(costs, plain) - best)
+    err_k = np.abs(assignment_cost(costs, got) - best)
+    err_p = np.abs(assignment_cost(costs, got_plain) - best)
     if not (err_k <= tol).all() or not (err_p <= tol).all():
-        raise AssertionError(f"K1 parity failed at {label}: kernel {err_k.max()}, "
+        raise AssertionError(f"parity failed at {label}: kernel {err_k.max()}, "
+                             f"plain {err_p.max()}")
+    return float(err_k.max())
+
+
+def k1_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
+    return lsap_against_references(hungarian.lsap_lane, hungarian.lsap_plain, costs, dev,
+                                   "K1 " + label)
+
+
+def k2_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
+    """K2 against its plain version and scipy, and against K1 where K1 fits."""
+    err = lsap_against_references(hungarian.lsap_block, hungarian.lsap_plain, costs, dev,
+                                  "K2 " + label)
+    if costs.shape[2] + 1 <= hungarian.LSEG:
+        cost_dev = torch.from_numpy(costs).to(dev)
+        via_k1 = assignment_cost(costs, hungarian.lsap_lane(cost_dev).cpu().numpy())
+        via_k2 = assignment_cost(costs, hungarian.lsap(cost_dev, force_block=True).cpu().numpy())
+        assert np.allclose(via_k1, via_k2, rtol=1e-2, atol=1e-2), f"K2 vs K1 at {label}"
+    return err
+
+
+def k3_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
+    """K3 on the square-padded copy of rectangular costs against its plain
+    version (a few problems) and scipy.  The padding rows cost BIG in every
+    column, so the optimum over the real rows is the rectangle's; compared on
+    the real rows, to the same 1e-2 * max(1, |optimum|)."""
+    b, nr, nc = costs.shape
+    square = matcher._square_pad(torch.from_numpy(costs).to(dev))
+    got = hungarian.lsap_square(square).cpu().numpy()
+    n_plain = min(K3_PLAIN_PROBLEMS, b)
+    got_plain = hungarian.lsap_square_plain(square[:n_plain]).cpu().numpy()
+    best = scipy_optimum(costs)
+    tol = 1e-2 * np.maximum(1.0, np.abs(best))
+    real = lambda out: np.where(out < nr, out, -1).astype(np.int32)  # drop the padding rows
+    err_k = np.abs(assignment_cost(costs, real(got)) - best)
+    err_p = np.abs(assignment_cost(costs[:n_plain], real(got_plain)) - best[:n_plain])
+    if not (err_k <= tol).all() or not (err_p <= tol[:n_plain]).all():
+        raise AssertionError(f"K3 parity failed at {label}: kernel {err_k.max()}, "
                              f"plain {err_p.max()}")
     return float(err_k.max())
 
 
 def jv_expansions(costs: np.ndarray) -> int:
     """Dijkstra expansions that JV makes on these problems: the data-dependent
-    part of K1's work (the same insertion order and tie-break)."""
+    part of a JV kernel's work (the same insertion order and tie-break)."""
     total = 0
     for a in costs.astype(np.float32):
         nr, nc = a.shape
@@ -174,44 +307,171 @@ def jv_expansions(costs: np.ndarray) -> int:
     return total
 
 
-def k1_bound(cost: torch.Tensor) -> dict:
-    """The least time K1 could take on ``cost``: the bytes it must move (the
-    cost read once, the int32 answer written once) over the memory rate,
-    against its f32 operations over the f32 rate."""
+def jv_bound(cost: torch.Tensor) -> dict:
+    """The least time a JV kernel could take on ``cost``: the bytes it must
+    move (the cost read once, the int32 answer written once) over the memory
+    rate, against its f32 operations on these costs over the f32 rate."""
     b, nr, nc = cost.shape
     nbytes = cost.numel() * 4 + b * nc * 4
     expansions = jv_expansions(cost.cpu().numpy())
-    ops = expansions * (nc + 1) * K1_OPS_PER_COLUMN
+    ops = expansions * (nc + 1) * JV_OPS_PER_COLUMN
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return {"ms": max(bytes_ms, ops_ms), "by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "bytes_ms": bytes_ms, "expansions": expansions, "ops": ops,
             "ops_ms": ops_ms}
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, with CUDA events."""
-    for _ in range(warmup):
-        fn()
+def time_jv(name: str, kernel, plain, cost: torch.Tensor, card: str, plain_iters: int,
+            plain_warmup: int = 1) -> dict:
+    ms = device_ms(lambda: kernel(cost))
+    eager_ms = cuda_ms(lambda: kernel(cost), 100)
+    plain_ms = cuda_ms(lambda: plain(cost), plain_iters, warmup=plain_warmup)
+    bound = jv_bound(cost)
+    print(f"{name} {list(cost.shape)}: {ms:.5f} ms on the device ({eager_ms:.5f} ms per call "
+          f"launched back to back from Python), plain version {plain_ms:.3f} ms, "
+          f"bound {bound['ms']:.7f} ms by {bound['by']} ({card})")
+    print(f"{name} bound: {bound['bytes']} B in {bound['bytes_ms']:.7f} ms; "
+          f"{bound['expansions']} expansions, {bound['ops']} f32 operations in "
+          f"{bound['ops_ms']:.7f} ms")
+    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["by"],
+            "library_ms": None}  # no PyTorch call computes a linear sum assignment
+
+
+# ------------------------------------------------------ K4: flash attention
+
+
+def attention_inputs(rng, b, h, sq, sk, d, dtype, dev, bias_kind: str, projected: bool = False):
+    """Seeded q, k, v and a bias.  ``projected`` lays q, k, v out as the
+    model's projections do: [B, S, H, D] in memory, seen as [B, H, S, D]."""
+    def draw(s):
+        x = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)).to(dev, dtype)
+        return x.transpose(1, 2) if projected else x.transpose(1, 2).contiguous()
+
+    q, k, v = draw(sq), draw(sk), draw(sk)
+    if bias_kind == "none":
+        bias = None
+    elif bias_kind == "full":
+        bias = torch.from_numpy(rng.randn(b, h, sq, sk).astype(np.float32)).to(dev)
+    else:  # key padding: clip 0 all padded, the others a random tail
+        pad = np.arange(sk)[None, :] >= rng.randint(sk // 2, sk + 1, size=(b, 1))
+        pad[0] = True
+        bias = attention.make_key_padding_bias(torch.from_numpy(pad).to(dev))
+    return q, k, v, bias
+
+
+def k4_against_plain(q, k, v, bias, label: str) -> float:
+    """K4 against its plain blockwise version on the same tensors; returns
+    max |difference|.  f32 inputs: 1e-5 (both keep f32 state and differ in the
+    order of the sums only).  bf16 inputs: both round an f32 result to bf16
+    once, so they differ by one bf16 rounding at most, 1e-2 relative.  Against
+    the non-flash path, which rounds the probabilities to bf16 before the
+    second product: bf16-level, 3e-2."""
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, bias)
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
+    assert flash_attention.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype and torch.isfinite(got).all().item()
+    plain = flash_attention.flash_attention_plain(q, k, v, bias)
+    tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+    err = float((got.float() - plain.float()).abs().max())
+    if not torch.allclose(got.float(), plain.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"K4 parity failed at {label}: max |kernel - plain| {err}")
+    ref = flash_attention.reference_attention(q, k, v, bias)
+    loose = 1e-4 if q.dtype == torch.float32 else 3e-2
+    if not torch.allclose(got.float(), ref.float(), rtol=loose, atol=loose):
+        raise AssertionError(f"K4 against the non-flash path failed at {label}: "
+                             f"{float((got.float() - ref.float()).abs().max())}")
+    return err
+
+
+def k4_bound(q, k, bias) -> dict:
+    """The least time K4 could take: q, k, v, the output and the bias as
+    stored, moved once, against the two products' operations at the peak rate
+    of the inputs' type (bf16: tensor cores; f32: the f32 cores)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if bias is not None:
+        nbytes += bias.numel() * 4
+    ops = 4 * b * h * sq * sk * d
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"ms": max(bytes_ms, ops_ms), "by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms}
+
+
+def time_k4(rng, sq: int, sk: int, dev, card: str) -> dict:
+    """K4, its plain version and the library call at one of the long clip's
+    shapes, on bf16 tensors laid out as the model's projections lay them."""
+    q, k, v, bias = attention_inputs(rng, LONG_BATCH, 8, sq, sk, 32, torch.bfloat16, dev,
+                                     "padding", projected=True)
+    ms = device_ms(lambda: flash_attention.flash_attention(q, k, v, bias))
+    eager_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v, bias), 50)
+    plain_ms = cuda_ms(lambda: flash_attention.flash_attention_plain(q, k, v, bias), 5, warmup=1)
+    mask = bias.to(q.dtype)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    bound = k4_bound(q, k, bias)
+    print(f"K4 q {list(q.shape)} k {list(k.shape)} bf16: {ms:.5f} ms on the device "
+          f"({eager_ms:.5f} ms per call launched back to back from Python), plain version "
+          f"{plain_ms:.3f} ms, library call {library_ms:.5f} ms on the device, bound "
+          f"{bound['ms']:.6f} ms "
+          f"by {bound['by']} ({bound['bytes']} B in {bound['bytes_ms']:.6f} ms; {bound['ops']} "
+          f"operations in {bound['ops_ms']:.6f} ms) ({card})")
+    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["by"], "library_ms": library_ms}
+
+
+def check_kernels(dev: torch.device) -> dict:
+    """Phase 2: every kernel against its references; returns the largest
+    error of each (assignment cost against the optimum; K4 against its plain
+    version, bf16 cases and f32 cases apart)."""
+    rng = np.random.RandomState(SEED)
+    errs = collections.defaultdict(float)
+    for shape in K1_SHAPES:
+        for kind in K1_COST_KINDS:
+            err = k1_against_references(k1_costs(rng, shape, kind), dev, f"{shape} {kind}")
+            errs["K1"] = max(errs["K1"], err)
+            print(f"K1 parity {list(shape)} {kind}: ok, max |cost - optimum| {err:.3g}")
+    for shape in WIDE_SHAPES:
+        for kind in K1_COST_KINDS:
+            costs = k1_costs(rng, shape, kind)
+            e2 = k2_against_references(costs, dev, f"{shape} {kind}")
+            e3 = k3_against_references(costs, dev, f"{shape} {kind}")
+            errs["K2"], errs["K3"] = max(errs["K2"], e2), max(errs["K3"], e3)
+            print(f"K2 and K3 parity {list(shape)} {kind}: ok, max |cost - optimum| "
+                  f"{e2:.3g} and {e3:.3g}")
+    # K4: (B, H, Sq, Sk, D); the long clip's encoder and cross shapes, a ragged
+    # tiny one, and the two wide head dims
+    shapes = [(LONG_BATCH, 8, 752, 752, 32), (LONG_BATCH, 8, 41, 752, 32), (2, 4, 40, 528, 16),
+              (2, 2, 70, 130, 64), (1, 2, 33, 200, 128)]
+    for i, (b, h, sq, sk, d) in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            for bias_kind in ("padding", "full", "none"):
+                q, k, v, bias = attention_inputs(rng, b, h, sq, sk, d, dtype, dev, bias_kind,
+                                                 projected=bias_kind == "padding")
+                name = str(dtype).split(".")[1]
+                err = k4_against_plain(q, k, v, bias, f"{shapes[i]} {name} {bias_kind}")
+                errs[f"K4 {name}"] = max(errs[f"K4 {name}"], err)
+                if i < 2 and dtype == torch.bfloat16:
+                    errs[f"K4 {sq}"] = max(errs[f"K4 {sq}"], err)
+                print(f"K4 parity q[{b},{h},{sq},{d}] k[{b},{h},{sk},{d}] {name} bias "
+                      f"{bias_kind}: ok, max |kernel - plain| {err:.3g}")
+    torch.cuda.synchronize()
+    return errs
 
 
 # ------------------------------------------------------------ evaluation
 
 
-def make_batches(cfg: SEDTConfig, batch: int, n_batches: int, seed: int):
+def make_batches(cfg: SEDTConfig, batch: int, n_batches: int, seed: int,
+                 seconds: float = SECONDS, clip_events: int = 5):
     m = cfg.model
-    enc = BoxEncoder(cfg.data.classes, SECONDS)
+    enc = BoxEncoder(cfg.data.classes, seconds)
     ds = SyntheticDataset(batch * n_batches, cfg.data.classes, m.max_frames, m.n_mels,
-                          enc.encode_strong_df, max_events=5, seconds=SECONDS, seed=seed)
+                          enc.encode_strong_df, max_events=clip_events, seconds=seconds, seed=seed)
     batches = [collate([ds[i] for i in range(k * batch, (k + 1) * batch)], m.max_events,
-                       SECONDS, indexes=range(k * batch, (k + 1) * batch))
+                       seconds, indexes=range(k * batch, (k + 1) * batch))
                for k in range(n_batches)]
     return enc, batches
 
@@ -234,10 +494,25 @@ def check_eval_result(res: dict, wd: dict, cfg: SEDTConfig, batch: int) -> None:
         at = res["at"]
         assert at.shape == (batch, m.num_classes) and ((at >= 0) & (at <= 1)).all().item()
     for at_m in FUSION:
-        pp = res[f"pp_{at_m}"]
-        assert pp.scores.shape == (batch, m.num_queries) and torch.isfinite(pp.scores).all().item()
-        assert ((pp.labels >= 0) & (pp.labels < m.num_classes)).all().item()
-        assert pp.boxes.shape == (batch, m.num_queries, 2) and torch.isfinite(pp.boxes).all().item()
+        check_predictions(*res[f"pp_{at_m}"], cfg, batch)
+
+
+def check_predictions(scores, labels, boxes, cfg: SEDTConfig, batch: int) -> None:
+    m = cfg.model
+    assert scores.shape == (batch, m.num_queries) and torch.isfinite(scores).all().item()
+    assert ((labels >= 0) & (labels < m.num_classes)).all().item()
+    assert boxes.shape == (batch, m.num_queries, 2) and torch.isfinite(boxes).all().item()
+
+
+class cudnn_tf32_off:
+    """f32 convolutions in full f32 while a card result is held against the CPU."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.saved
 
 
 def small_reference(dev: torch.device, seed: int) -> float:
@@ -246,13 +521,11 @@ def small_reference(dev: torch.device, seed: int) -> float:
     cfg = SEDTConfig.tiny_test()
     _, batches = make_batches(cfg, 4, 1, seed)
     valid = torch.tensor([True, True, True, False])
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
     res = {}
-    for d in (torch.device("cpu"), dev):
-        model, wd = build_model(cfg, device=d, generator=torch.Generator().manual_seed(seed))
-        res[d.type] = make_eval_step(model, wd, cfg, FUSION, device=d)(batches[0], valid)
-    torch.backends.cudnn.allow_tf32 = tf32
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            model, wd = build_model(cfg, device=d, generator=torch.Generator().manual_seed(seed))
+            res[d.type] = make_eval_step(model, wd, cfg, FUSION, device=d)(batches[0], valid)
     ref, got = res["cpu"], res["cuda"]
     check_eval_result(got, wd, cfg, 4)
     worst = 0.0
@@ -266,9 +539,173 @@ def small_reference(dev: torch.device, seed: int) -> float:
     return worst
 
 
-def profile_step(model, step, cfg, batch_cpu, valid, card: str) -> None:
-    """Forward / criterion / post-processing split of one step (CUDA events)
-    and a torch.profiler table of three steps, written to chiprun_out/."""
+# --------------------------------------------------------------- predict
+
+
+def long_config(base: SEDTConfig, seconds: float, max_frames: int, **model_kw) -> SEDTConfig:
+    """``base`` at a longer clip: the features' length and the model's frame
+    count (and any other model field) replaced, everything else as it was."""
+    return base.replace(
+        features=dataclasses.replace(base.features, max_len_seconds=seconds),
+        model=dataclasses.replace(base.model, max_frames=max_frames, **model_kw))
+
+
+def make_waveforms(cfg: SEDTConfig, batch: int, seed: int) -> np.ndarray:
+    """[batch, n_samples] f32: a noise floor with a few tone bursts; the last
+    clip is short and zero-padded, as a ragged batch's tail is."""
+    fc = cfg.features
+    n = int(fc.max_len_seconds * fc.sample_rate)
+    rng = np.random.default_rng(seed)
+    waves = rng.standard_normal((batch, n), dtype=np.float32) * 0.02
+    t = np.arange(n, dtype=np.float32) / fc.sample_rate
+    for i in range(batch):
+        for _ in range(4):
+            start, dur = rng.uniform(0, 0.8), rng.uniform(0.05, 0.2)
+            seg = slice(int(start * n), int((start + dur) * n))
+            waves[i, seg] += 0.3 * np.sin(2 * np.pi * rng.uniform(200, 3000) * t[seg])
+    waves[-1, n // 3:] = 0.0
+    return waves
+
+
+def small_long_predict(dev: torch.device, seed: int) -> float:
+    """The tiny f32 predict on clips long enough for 528 encoder tokens, on
+    the card (K4) against the CPU (the plain non-flash path), TF32 off;
+    returns the largest score or box difference, held to 1e-3."""
+    cfg = long_config(SEDTConfig.tiny_test(), 4224 * 128 / 8000, 4224)
+    waves = make_waveforms(cfg, 2, seed)
+    res = {}
+    before = flash_attention.flash_attention.launches
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            model, _ = build_model(cfg, device=d, generator=torch.Generator().manual_seed(seed))
+            res[d.type] = [t.cpu() for t in make_infer(cfg, model, device=d)(waves)]
+    launched = flash_attention.flash_attention.launches - before
+    want = cfg.model.enc_layers + cfg.model.dec_layers
+    assert launched == want, f"K4 launched {launched} times in the tiny long predict, not {want}"
+    check_predictions(*res["cuda"], cfg, 2)
+    worst = 0.0
+    for g, r in zip(res["cuda"], res["cpu"]):
+        assert torch.allclose(g.float(), r.float(), rtol=1e-3, atol=1e-3)
+        worst = max(worst, float((g.float() - r.float()).abs().max()))
+    return worst
+
+
+def synthetic_scaler(n_mels: int) -> Scaler:
+    """Per-band statistics of the size a log-mel dataset has (dB)."""
+    sc = Scaler()
+    mean = np.linspace(-30.0, -50.0, n_mels)
+    sc.load_state_dict({"mean_": mean.tolist(), "mean_of_square_": (mean**2 + 15.0**2).tolist()})
+    return sc
+
+
+def run_long_predict(cfg: SEDTConfig, model, dev: torch.device, card: str) -> dict:
+    """Phase 5: the 60 s flagship predict, batch 8; returns K4's launches per
+    shape in the counted run."""
+    m, fc = cfg.model, cfg.features
+    waves = torch.from_numpy(make_waveforms(cfg, LONG_BATCH, SEED))
+    scaler = synthetic_scaler(fc.n_mels)
+    infer = make_infer(cfg, model, scaler, at_m=1, device=dev)
+    enc = BoxEncoder(list(cfg.data.classes), seconds=fc.max_len_seconds)
+    print(f"long predict: {fc.max_len_seconds:.0f} s clips, {waves.shape[1]} samples, "
+          f"{m.max_frames}x{m.n_mels} frames, queries {m.num_queries}+dec_at, batch {LONG_BATCH}, "
+          f"compute {m.compute_dtype}")
+
+    # K4's shapes as the model hands them over, tallied beside the wrapper's own count
+    seen = collections.Counter()
+    real = flash_attention.flash_attention
+    def tally(q, k, v, bias=None):
+        assert q.dtype == k.dtype == v.dtype == torch.bfloat16 and bias.dtype == torch.float32
+        seen[(q.shape[2], k.shape[2])] += 1
+        return real(q, k, v, bias)
+    attention.flash_attention = tally
+    infer(waves)  # warm-up: cuDNN picks its algorithms, the allocator its blocks
+    torch.cuda.synchronize()
+    seen.clear()
+
+    reset_launch_counts()  # the main path: counts from here ...
+    t0 = time.perf_counter()
+    for _ in range(LONG_FORWARDS):
+        scores, labels, boxes = infer(waves)
+        events = enc.decode_strong_batch(scores.cpu().numpy(), labels.cpu().numpy(),
+                                         boxes.cpu().numpy(), threshold=0.0)
+    batch_s = (time.perf_counter() - t0) / LONG_FORWARDS
+    counts = launch_counts()  # ... to here
+    attention.flash_attention = real
+    per_forward = m.enc_layers + m.dec_layers
+    assert counts["K4"] == per_forward * LONG_FORWARDS == sum(seen.values()), (counts, seen)
+    tokens = -(-m.max_frames // 16) * (m.n_mels // 16)
+    assert seen == {(tokens, tokens): m.enc_layers * LONG_FORWARDS,
+                    (m.num_queries + 1, tokens): m.dec_layers * LONG_FORWARDS}, seen
+    check_predictions(scores, labels, boxes, cfg, LONG_BATCH)
+    n_events = sum(len(v) for v in events.values())
+    assert n_events > 0
+    for rows in events.values():
+        assert all(0.0 <= on <= off <= fc.max_len_seconds + 1e-3 for _, on, off, _ in rows)
+    print(f"long predict: {batch_s * 1e3:.3f} ms/batch with the host decode, "
+          f"{LONG_BATCH * fc.max_len_seconds / batch_s:.1f} s of audio per second, K4 "
+          f"{counts['K4']} launches in {LONG_FORWARDS} forwards, {n_events} events decoded at "
+          f"threshold 0 over {len(events)} clips (random weights) ({card})")
+
+    # the split of one batch, on the device clock
+    frontend = make_frontend_fn(
+        sr=fc.sample_rate, n_fft=fc.n_fft, n_window=fc.n_window, hop=fc.hop_size,
+        n_mels=fc.n_mels, max_frames=m.max_frames, scaler_mean=scaler.mean_,
+        scaler_std=scaler.std_, compute_log=fc.compute_log)
+    with torch.inference_mode():
+        waves_dev = waves.to(dev)
+        feats = frontend(waves_dev)
+        pad = torch.zeros(feats.shape[:2], dtype=torch.bool, device=dev)
+        out = model(feats, pad)
+        tags = (out["at"] > 0.5).float()
+        sizes = torch.full((LONG_BATCH,), fc.max_len_seconds, device=dev)
+        parts = {
+            "host-to-device copy": lambda: waves.to(dev),
+            "frontend": lambda: frontend(waves_dev),
+            "forward": lambda: model(feats, pad),
+            "postprocess": lambda: postprocess(out, sizes, audio_tags=tags, at_m=1),
+        }
+        for name, fn in parts.items():
+            print(f"long predict part {name}: {cuda_ms(fn, 5, warmup=1):.4f} ms/batch ({card})")
+    profile(lambda: infer(waves), 3, "long predict", card, "long_predict_profile.txt")
+    return {sq: n for (sq, _), n in seen.items()}
+
+
+# --------------------------------------------------------------- profile
+
+
+def profile(fn, calls: int, label: str, card: str, file_name: str) -> None:
+    """A torch.profiler table of ``calls`` calls of ``fn``, written to
+    chiprun_out/, and the device's busy and idle share of them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    print(f"profiled {calls} x {label}: device busy {busy_us / calls / 1e3:.3f} ms each in "
+          f"{sum(r[2] for r in rows) // calls} kernels and copies, "
+          f"{wall_us / calls / 1e3:.3f} ms each wall under the profiler, idle share "
+          f"{1 - busy_us / wall_us:.4f} ({card})")
+    lines = [f"{t / calls / 1e3:10.4f} ms each {c // calls:6d} each  {k[:140]}"
+             for k, t, c in rows]
+    for line in lines[:12]:
+        print("  " + line)
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / file_name).write_text(
+        f"{card}\n" + "\n".join(lines) + "\n\n"
+        + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+
+
+def split_eval_step(model, cfg, batch_cpu, valid, card: str) -> None:
+    """Forward / criterion / post-processing split of one step (CUDA events)."""
     dev = next(model.parameters()).device
     feats, pad = batch_cpu.feats.to(dev), batch_cpu.pad_mask.to(dev)
     targets = type(batch_cpu.targets)(*(t.to(dev) for t in batch_cpu.targets))
@@ -284,30 +721,25 @@ def profile_step(model, step, cfg, batch_cpu, valid, card: str) -> None:
         }
         for name, fn in parts.items():
             print(f"eval step part {name}: {cuda_ms(fn, 10):.4f} ms/batch ({card})")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(batch_cpu, valid)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): an operator's row repeats
-    # the device time of the kernels it launched
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in rows)
-    print(f"profiled 3 steps: device busy {busy_us / 3e3:.3f} ms/step in "
-          f"{sum(r[2] for r in rows) // 3} kernels and copies, {wall_us / 3e3:.3f} ms/step wall "
-          f"under the profiler, idle share {1 - busy_us / wall_us:.4f} ({card})")
-    lines = [f"{t / 3e3:10.4f} ms/step {c // 3:6d}/step  {k[:140]}" for k, t, c in rows]
-    for line in lines[:12]:
-        print("  " + line)
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "eval_step_profile.txt").write_text(
-        f"{card}\n" + "\n".join(lines) + "\n\n"
-        + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+
+
+def first_step_cost(step, batch, valid) -> tuple:
+    """One (warm-up) step with the Hungarian cost it hands to ``lsap`` kept."""
+    seen = []
+    matcher.lsap = lambda cost: (seen.append(cost.clone()), hungarian.lsap(cost))[1]
+    res = step(batch, valid)
+    matcher.lsap = hungarian.lsap
+    torch.cuda.synchronize()
+    (cost,) = seen
+    return res, cost
+
+
+def describe(cfg: SEDTConfig, batch: int, n_params: int) -> str:
+    m = cfg.model
+    return (f"{m.backbone} dilation={m.dilation} enc/dec {m.enc_layers}/{m.dec_layers} "
+            f"d {m.hidden_dim} heads {m.nheads} ffn {m.dim_feedforward} queries {m.num_queries}"
+            f"+dec_at slots {m.max_events} input {m.max_frames}x{m.n_mels} batch {batch} "
+            f"compute {m.compute_dtype}, {n_params} parameters")
 
 
 def main() -> None:
@@ -319,47 +751,33 @@ def main() -> None:
     card = card_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"card: {card}")
-    build_s = build_kernels()
-    print(f"kernel build: {build_s:.2f} s ({card})")
+    for name, seconds in build_kernels().items():
+        print(f"kernel build {name}: {seconds:.2f} s ({card})")
 
-    # 2. K1 on the card against its plain version and scipy
-    rng = np.random.RandomState(SEED)
-    k1_err = 0.0
-    for shape in K1_SHAPES:
-        for kind in K1_COST_KINDS:
-            err = k1_against_references(k1_costs(rng, shape, kind), dev, f"{shape} {kind}")
-            k1_err = max(k1_err, err)
-            print(f"K1 parity {list(shape)} {kind}: ok, max |cost - optimum| {err:.3g}")
-    torch.cuda.synchronize()
+    # 2. every kernel against its plain version (and scipy, and the non-flash path)
+    errs = check_kernels(dev)
 
-    # 3. the evaluation step on the card against the CPU, small and f32
+    # 3. the tiny f32 paths on the card against the CPU
     worst = small_reference(dev, SEED)
     print(f"tiny f32 eval step, card vs CPU: ok, max |loss difference| {worst:.3g}")
+    worst = small_long_predict(dev, SEED)
+    print(f"tiny f32 long predict (K4 on the card, non-flash path on the CPU): ok, "
+          f"max |score or box difference| {worst:.3g}")
 
-    # 4. the flagship evaluation step
+    # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
     m = cfg.model
     batch = cfg.data.batch_size
     model, wd = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
-    n_params = sum(p.numel() for p in model.parameters())
     enc, batches = make_batches(cfg, batch, 2, SEED)
     valid = torch.ones(batch, dtype=torch.bool)
     step = make_eval_step(model, wd, cfg, FUSION, device=dev)
-    print(f"flagship: {m.backbone} dilation={m.dilation} enc/dec {m.enc_layers}/{m.dec_layers} "
-          f"d {m.hidden_dim} heads {m.nheads} ffn {m.dim_feedforward} queries {m.num_queries}"
-          f"+dec_at slots {m.max_events} input {m.max_frames}x{m.n_mels} batch {batch} "
-          f"compute {m.compute_dtype}, {n_params} parameters")
-
-    seen = []  # the warm-up step's Hungarian cost, as the step hands it to K1
-    matcher.lsap = lambda cost: (seen.append(cost.clone()), hungarian.lsap(cost))[1]
-    res = step(batches[0], valid)
-    matcher.lsap = hungarian.lsap
-    torch.cuda.synchronize()
+    print("flagship: " + describe(cfg, batch, sum(p.numel() for p in model.parameters())))
+    res, cost = first_step_cost(step, batches[0], valid)
     check_eval_result(res, wd, cfg, batch)
-    (cost,) = seen
     assert cost.shape == (m.dec_layers * batch, m.num_queries, m.max_events), cost.shape
     step_err = k1_against_references(cost.cpu().numpy(), dev, "the step's own cost")
-    k1_err = max(k1_err, step_err)
+    errs["K1"] = max(errs["K1"], step_err)
     print(f"K1 on the step's own cost {list(cost.shape)}: ok vs plain and scipy, "
           f"max |cost - optimum| {step_err:.3g}")
     pp = res["pp_1"]
@@ -372,47 +790,104 @@ def main() -> None:
           + ", ".join(f"{k} {float(v):.4f}" for k, v in sorted(res['losses'].items())
                       if not k[-1].isdigit()))
 
-    hungarian.lsap.launches = 0  # the main path: counts from here ...
+    reset_launch_counts()  # the main path: counts from here ...
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(STEPS):
         res = step(batches[i % len(batches)], valid)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / STEPS
-    launches = {"K1": hungarian.lsap.launches}  # ... to here
+    launches = {"K1": launch_counts()["K1"]}  # ... to here
     check_eval_result(res, wd, cfg, batch)
-    for name, n in launches.items():
-        assert n == STEPS, f"{name} launched {n} times in {STEPS} steps"
+    assert launches["K1"] == STEPS, f"K1 launched {launches['K1']} times in {STEPS} steps"
     print(f"eval step: {step_s * 1e3:.3f} ms/batch, {batch / step_s:.1f} clips/s, "
           f"{STEPS} steps, batch {batch} ({card})")
+    timing = {"K1": time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5)}
+    shapes = {"K1": list(cost.shape)}
+    split_eval_step(model, cfg, batches[0], valid, card)
+    profile(lambda: step(batches[0], valid), 3, "eval step", card, "eval_step_profile.txt")
+    del model, step
 
-    # 5. K1 timings on the step's own cost
-    k1_ms = cuda_ms(lambda: hungarian.lsap(cost), 200)
-    plain_ms = cuda_ms(lambda: hungarian.lsap_plain(cost), 5, warmup=1)
-    bound = k1_bound(cost)
-    print(f"K1 {list(cost.shape)}: {k1_ms:.5f} ms, plain version {plain_ms:.3f} ms, "
-          f"bound {bound['ms']:.7f} ms by {bound['by']} ({card})")
-    print(f"K1 bound: {bound['bytes']} B in {bound['bytes_ms']:.7f} ms; {bound['expansions']} "
-          f"expansions, {bound['ops']} f32 operations in {bound['ops_ms']:.7f} ms")
+    # 5. long-clip predict at the flagship's width
+    long_cfg = long_config(cfg, LONG_SECONDS, int(LONG_SECONDS * 50), num_queries=40,
+                           max_events=60)
+    lm = long_cfg.model
+    model, wd = build_model(long_cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    print("long clip: " + describe(long_cfg, LONG_BATCH, sum(p.numel() for p in model.parameters())))
+    k4_launches = run_long_predict(long_cfg, model, dev, card)
 
-    profile_step(model, step, cfg, batches[0], valid, card)
+    # 6. the long-clip evaluation step
+    _, batches = make_batches(long_cfg, LONG_BATCH, 2, SEED, seconds=LONG_SECONDS, clip_events=30)
+    valid = torch.ones(LONG_BATCH, dtype=torch.bool)
+    step = make_eval_step(model, wd, long_cfg, FUSION, device=dev)
+    res, cost = first_step_cost(step, batches[0], valid)
+    check_eval_result(res, wd, long_cfg, LONG_BATCH)
+    assert cost.shape == (lm.dec_layers * LONG_BATCH, lm.num_queries, lm.max_events), cost.shape
+    cost_np = cost.cpu().numpy()
+    e2 = k2_against_references(cost_np, dev, "the long step's own cost")
+    errs["K2"] = max(errs["K2"], e2)
+    reset_launch_counts()  # K3's path is its entry point: counts from here ...
+    square = matcher._square_pad(cost)
+    by_k3 = hungarian.lsap_square(square).cpu().numpy()
+    launches["K3"] = launch_counts()["K3"]  # ... to here
+    assert launches["K3"] == 1
+    best = scipy_optimum(cost_np)
+    k3_cost = assignment_cost(cost_np, np.where(by_k3 < lm.num_queries, by_k3, -1).astype(np.int32))
+    assert (np.abs(k3_cost - best) <= 1e-2 * np.maximum(1.0, np.abs(best))).all()
+    errs["K3"] = max(errs["K3"], float(np.abs(k3_cost - best).max()))
+    print(f"long step's own cost {list(cost.shape)}: K2 ok vs plain and scipy (max |cost - "
+          f"optimum| {e2:.3g}), K3 on the square-padded copy {list(square.shape)} reaches "
+          f"scipy's optimum (max difference {float(np.abs(k3_cost - best).max()):.3g})")
 
-    kernels = [{
-        "name": "K1 hungarian_jv",
-        "route": "cuda",
-        "source": "sound_event_detection_transformer_tpu_torch/csrc/hungarian_jv.cu",
-        "replaces": "sound_event_detection_transformer_tpu/ops/pallas/hungarian.py:302",
-        "tpu_kernel": "_jv_lane_kernel",
-        "shape": list(cost.shape),
-        "launches": launches["K1"],
-        "parity": "ok",
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound["ms"],
-        "bound_by": bound["by"],
-        "library_ms": None,  # no PyTorch call computes a linear sum assignment
-    }]
+    reset_launch_counts()  # the main path: counts from here ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LONG_STEPS):
+        res = step(batches[i % len(batches)], valid)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LONG_STEPS
+    counts = launch_counts()  # ... to here
+    check_eval_result(res, wd, long_cfg, LONG_BATCH)
+    per_forward = lm.enc_layers + lm.dec_layers
+    assert counts["K2"] == LONG_STEPS and counts["K1"] == 0, counts
+    assert counts["K4"] == per_forward * LONG_STEPS, counts
+    launches["K2"] = counts["K2"]
+    print(f"long eval step: {step_s * 1e3:.3f} ms/batch, K2 {counts['K2']} and K4 {counts['K4']} "
+          f"launches in {LONG_STEPS} steps, batch {LONG_BATCH} ({card})")
+
+    # 7. kernel times at the long path's shapes
+    timing["K2"] = time_jv("K2", hungarian.lsap_block, hungarian.lsap_plain, cost, card, 3)
+    timing["K3"] = time_jv("K3", hungarian.lsap_square, hungarian.lsap_square_plain, square,
+                           card, 1, plain_warmup=0)  # the plain version takes seconds
+    shapes["K2"], shapes["K3"] = list(cost.shape), list(square.shape)
+    rng = np.random.RandomState(SEED + 1)
+    tokens = -(-lm.max_frames // 16) * (lm.n_mels // 16)
+    k4_shapes = {"encoder": (tokens, tokens), "cross": (lm.num_queries + 1, tokens)}
+    for name, (sq, sk) in k4_shapes.items():
+        timing[f"K4 {name}"] = time_k4(rng, sq, sk, dev, card)
+
+    hungarian_src = SOURCE_DIR + "hungarian_jv.cu"
+    kernels = [
+        {"name": "K1 jv_lane", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:302",
+         "tpu_kernel": "_jv_lane_kernel", "shape": shapes["K1"], "launches": launches["K1"],
+         "max_abs_err": errs["K1"], **timing["K1"]},
+        {"name": "K2 jv_block", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:197",
+         "tpu_kernel": "_jv_packed_kernel", "shape": shapes["K2"], "launches": launches["K2"],
+         "max_abs_err": errs["K2"], **timing["K2"]},
+        {"name": "K3 jv_square", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:120",
+         "tpu_kernel": "_jv_kernel", "shape": shapes["K3"], "launches": launches["K3"],
+         "max_abs_err": errs["K3"], **timing["K3"]},
+    ]
+    for name, (sq, sk) in k4_shapes.items():
+        kernels.append(
+            {"name": f"K4 flash_attention {name}", "source": SOURCE_DIR + "flash_attention.cu",
+             "replaces": PALLAS_DIR + "flash_attention.py:35", "tpu_kernel": "_flash_kernel",
+             "shape": {"q": [LONG_BATCH, 8, sq, 32], "kv": [LONG_BATCH, 8, sk, 32],
+                       "dtype": "bfloat16"},
+             "launches": k4_launches[sq], "max_abs_err": errs[f"K4 {sq}"],
+             "max_abs_err_f32": errs["K4 float32"], **timing[f"K4 {name}"]})
+    for kernel in kernels:
+        kernel.update(route="cuda", parity="ok")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

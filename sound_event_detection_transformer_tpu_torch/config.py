@@ -1,10 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of the parts of the JAX package's ``config.py`` that the
-evaluation path reads: features, model, loss, the data fields the eval step
-uses, and the ``urbansed_supervised`` / ``tiny_test`` presets.  Field names,
-defaults and presets are the JAX package's, so a configuration means the same
-thing on both sides.
+The port's own copy of the JAX package's ``config.py``: features, model, loss,
+data, augment and train dataclasses (everything ``train_lib.args_to_config``
+fills; the device-mesh layout waits for the multi-GPU slice) and the
+``urbansed_supervised`` / ``tiny_test`` presets.  Field names, defaults and
+presets are the JAX package's, so a configuration means the same thing on
+both sides.
 """
 from __future__ import annotations
 
@@ -58,6 +59,10 @@ class FeatureConfig:
         return math.ceil(self.max_len_seconds * self.sample_rate / self.hop_size)
 
     @classmethod
+    def dcase(cls) -> "FeatureConfig":
+        return cls()
+
+    @classmethod
     def urbansed(cls) -> "FeatureConfig":
         sr = 44100
         return cls(
@@ -94,6 +99,9 @@ class ModelConfig:
     pooling: Optional[str] = None  # None | 'max' | 'avg' | 'attn' | 'weighted_sum'
     self_sup: bool = False
     feature_recon: bool = False
+    query_shuffle: bool = False
+    mask_ratio: float = 0.1
+    num_patches: int = 10
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"  # parameters stay float32
     max_frames: int = 496
@@ -123,15 +131,61 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The dataset fields the evaluation path reads."""
+    """Dataset paths and composition."""
 
     dataset_name: str = "urbansed"  # 'urbansed' | 'dcase'
+    root: str = "./data"
+    exp_root: str = "./exp"
     classes: Tuple[str, ...] = URBAN_CLASSES
     batch_size: int = 64
+    n_weak: int = 0  # weak-labeled sub-batch size
+    num_workers: int = 0
+    in_memory: bool = True
+    nb_files: Optional[int] = None  # subset for debugging
+    max_strong_clips: Optional[int] = None  # cap on the strong (synthetic) split only
 
     @property
     def num_classes(self) -> int:
         return len(self.classes)
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Device-side augmentation switches."""
+
+    mix_up_ratio: float = 0.0
+    time_mask: bool = False
+    freq_mask: bool = False
+    freq_shift: bool = False
+    gaussian_noise_snr: float = 30.0  # teacher/student pair SNR
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule."""
+
+    lr: float = 1e-4
+    lr_backbone: float = 1e-4
+    weight_decay: float = 1e-4
+    epochs: int = 400
+    epochs_ls: int = 280  # learning-stage end; fine-tune stage after
+    lr_drop: int = 160
+    lr_drop_gamma: float = 0.1
+    adjust_lr: bool = True  # False: the LR stays at its base value
+    clip_max_norm: float = 0.1
+    accumulating_gradient_steps: int = 1
+    accumlating_ema_steps: int = 1
+    ema_decay: float = 0.9996
+    seed: int = 42
+    eval_interval: int = 1
+    checkpoint_epochs: Optional[int] = None
+    early_stopping_patience: int = 50
+    early_stopping_init_wait: int = 50
+    fusion_strategy: Tuple[int, ...] = (1,)
+    fine_tune: bool = False
+    normalize: bool = False
+    focal_loss: bool = False
+    info: str = "sedt"
 
 
 @dataclass(frozen=True)
@@ -140,6 +194,8 @@ class SEDTConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **kw) -> "SEDTConfig":
         return dataclasses.replace(self, **kw)
@@ -160,6 +216,7 @@ class SEDTConfig:
                 n_mels=feats.n_mels,
             ),
             data=DataConfig(dataset_name="urbansed", classes=URBAN_CLASSES, batch_size=64),
+            train=TrainConfig(epochs=400, epochs_ls=280, lr_drop=160),
         )
 
     @classmethod
@@ -184,4 +241,5 @@ class SEDTConfig:
                 compute_dtype="float32",
             ),
             data=DataConfig(classes=URBAN_CLASSES[:4], batch_size=4),
+            train=TrainConfig(epochs=2, epochs_ls=1, seed=0),
         )

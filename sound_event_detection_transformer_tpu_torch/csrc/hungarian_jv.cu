@@ -1,12 +1,20 @@
-// Batched rectangular linear sum assignment by Jonker-Volgenant shortest
-// augmenting paths, one warp per problem.
+// Batched linear sum assignment by Jonker-Volgenant shortest augmenting
+// paths: three kernels for the three TPU kernels of
+// sound_event_detection_transformer_tpu/ops/pallas/hungarian.py.
 //
-// Replaces the TPU kernel `_jv_lane_kernel` of
-// sound_event_detection_transformer_tpu/ops/pallas/hungarian.py (launched by
-// `_lane_packed`, the default of `pallas_hungarian_packed` when nc + 1 <= 32).
-// It computes the same function: cost f32 [B, nr, nc] with nr <= nc ->
-// row-for-column int32 [B, nc], -1 on the nc - nr columns left free.  Only
-// the nr real rows are inserted.
+//   jv_lane_kernel    one warp per problem, nc + 1 <= 32   (`_jv_lane_kernel`)
+//   jv_block_kernel   one block per problem, any width     (`_jv_packed_kernel`)
+//   jv_square_kernel  one warp per square problem, columns strided over the
+//                     lanes, any n                         (`_jv_kernel`)
+//
+// The first two compute the same function: cost f32 [B, nr, nc] with
+// nr <= nc -> row-for-column int32 [B, nc], -1 on the nc - nr columns left
+// free.  Only the nr real rows are inserted.  The third takes cost
+// [B, n, n] and returns [B, n].
+//
+// ---- jv_lane_kernel -------------------------------------------------------
+// Replaces `_jv_lane_kernel` (launched by `_lane_packed`, the default of
+// `pallas_hungarian_packed` when nc + 1 <= 32).
 //
 // What bounds it: at the evaluation step's shape [192, 10, 20] the problem
 // moves 169 KB and does about a megaflop, far below what the card needs a
@@ -26,8 +34,10 @@
 //
 // Termination does not depend on the costs: the minimum is taken over live
 // (real, unused) columns only, so every expansion uses up one more column,
-// and a free column always remains because nr <= nc.  A NaN cost gives a
-// wrong assignment, never a warp that spins.
+// and a free column always remains because nr <= nc.  A live column's bid
+// is clamped to INF, below the +inf of the others, whatever the costs hold.
+// A NaN or infinite cost gives a wrong assignment, never a warp that spins.
+// All three kernels keep this rule.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -79,8 +89,9 @@ __global__ void jv_lane_kernel(const float* __restrict__ cost,
         }
       }
       // warp min and argmin over the live columns, lowest index on ties;
-      // other lanes bid +inf, above any live minv (<= INF), so never win
-      float m = live ? minv : CUDART_INF_F;
+      // other lanes bid +inf, above any live bid (clamped to INF, which also
+      // turns a NaN into INF), so they never win
+      float m = live ? fminf(minv, kInf) : CUDART_INF_F;
       int j1 = lane;
       for (int off = 16; off > 0; off >>= 1) {
         const float om = __shfl_xor_sync(kFull, m, off);
@@ -110,9 +121,233 @@ __global__ void jv_lane_kernel(const float* __restrict__ cost,
   if (in_range) out[static_cast<long long>(b) * nc + (lane - 1)] = p - 1;
 }
 
+// ---- jv_block_kernel ------------------------------------------------------
+// Replaces `_jv_packed_kernel` (launched by `_sublane_packed`: the dispatch
+// of `pallas_hungarian_packed` when nc + 1 > 32, or when forced).
+//
+// What bounds it: at the long-clip evaluation step's shape [24, 40, 60] it
+// moves 236 KB and does a few megaflops; like the lane kernel its time is
+// the chain of dependent expansions, up to 1 + 2 + ... + nr = 820 a problem,
+// and each now crosses warps.
+//
+// What the design does about that: one block per problem, thread j holding
+// column j (thread 0 the virtual root), so any width up to 1023 columns runs
+// with the column state (v, minv, used, way) in registers.  What other
+// threads must read lives in shared memory: the cost block, the assignment
+// p, the row potentials u, and one (min, argmin) pair per warp.  The minimum
+// is the lane kernel's shuffle butterfly inside each warp, then every thread
+// folds the per-warp pairs (at most 32) itself, which saves the third
+// barrier a second butterfly would need: two __syncthreads per expansion.
+// The augmenting walk is serial pointer chasing, so thread 0 does it alone.
+// The Pallas kernel's fixed-bound masked loops were forced by its compiler;
+// here the loops end when the search does.
+__global__ void jv_block_kernel(const float* __restrict__ cost,
+                                int* __restrict__ out, int nr, int nc) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int b = blockIdx.x;
+
+  float* a = smem;                                   // [nr * nc]
+  float* u = a + nr * nc;                            // [nr + 1] row potentials
+  float* red_m = u + (nr + 1);                       // [32] per-warp minimum
+  int* red_j = reinterpret_cast<int*>(red_m + 32);   // [32] per-warp argmin
+  int* p = red_j + 32;                               // [nc + 1] col -> row
+  int* way = p + (nc + 1);                           // [nc + 1]
+
+  const float* src = cost + static_cast<long long>(b) * nr * nc;
+  for (int k = tid; k < nr * nc; k += blockDim.x) a[k] = src[k];
+  for (int k = tid; k <= nr; k += blockDim.x) u[k] = 0.0f;
+  for (int k = tid; k <= nc; k += blockDim.x) p[k] = 0;
+  __syncthreads();
+
+  const bool in_range = tid >= 1 && tid <= nc;  // a real column
+  float v = 0.0f;  // column potential of column `tid`
+
+  for (int i = 1; i <= nr; ++i) {
+    if (tid == 0) p[0] = i;  // the virtual root holds the row being inserted
+    __syncthreads();
+    float minv = kInf;
+    bool used = false;
+    bool row_in_tree = false;  // row `tid` reached by this search
+    int my_way = 0;
+    int j0 = 0;
+    do {
+      if (tid == j0) used = true;
+      const int i0 = p[j0];
+      if (tid == i0) row_in_tree = true;
+      const float u_i0 = u[i0];
+      const bool live = in_range && !used;
+      if (live) {
+        const float cur = a[(i0 - 1) * nc + (tid - 1)] - u_i0 - v;
+        if (cur < minv) {
+          minv = cur;
+          my_way = j0;
+        }
+      }
+      // min and argmin over the live columns, lowest index on ties; other
+      // threads bid +inf, above any live bid (clamped to INF), so never win
+      float m = live ? fminf(minv, kInf) : CUDART_INF_F;
+      int j1 = tid;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float om = __shfl_xor_sync(kFull, m, off);
+        const int oj = __shfl_xor_sync(kFull, j1, off);
+        if (om < m || (om == m && oj < j1)) {
+          m = om;
+          j1 = oj;
+        }
+      }
+      if (lane == 0) {
+        red_m[warp] = m;
+        red_j[warp] = j1;
+      }
+      __syncthreads();
+      m = red_m[0];
+      j1 = red_j[0];
+      for (int w = 1; w < nwarps; ++w) {  // warps hold ascending columns
+        const float om = red_m[w];
+        if (om < m) {
+          m = om;
+          j1 = red_j[w];
+        }
+      }
+      const float delta = m;
+      if (row_in_tree) u[tid] += delta;  // thread r owns u[r], 1 <= r <= nr
+      if (used) {
+        v -= delta;
+      } else {
+        minv -= delta;
+      }
+      j0 = j1;
+      __syncthreads();  // u is updated and the pairs are read before the next round
+    } while (p[j0] != 0);
+    // Augment: walk the path back to the root, shifting assignments.
+    if (tid <= nc) way[tid] = my_way;
+    __syncthreads();
+    if (tid == 0) {
+      do {
+        const int j1 = way[j0];
+        p[j0] = p[j1];
+        j0 = j1;
+      } while (j0 != 0);
+    }
+    __syncthreads();
+  }
+  if (in_range) out[static_cast<long long>(b) * nc + (tid - 1)] = p[tid] - 1;
+}
+
+// ---- jv_square_kernel -----------------------------------------------------
+// Replaces `_jv_kernel` (`jv_body`, reached through `pallas_hungarian`): the
+// reference formulation, one square problem at a time with data-dependent
+// loops and all column state in arrays, here one warp per problem.
+//
+// What bounds it: the same chain of dependent expansions, n (n + 1) / 2 at
+// most; the cost is read row by row from device memory through the caches
+// (each row read is one coalesced pass), so n is not limited by shared
+// memory, which holds only the six state arrays of n + 1 entries.
+//
+// What the design does: lane l owns columns l, l + 32, ...; each expansion is
+// one strided pass to relax and find the lane's best column, a shuffle
+// butterfly across lanes, and one strided pass to update the potentials.  It
+// shares no reduction code with the other two kernels, which is what makes
+// it a cross-check of them on the card.
+__global__ void jv_square_kernel(const float* __restrict__ cost,
+                                 int* __restrict__ out, int n) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const int n1 = n + 1;
+  float* u = smem;            // row potentials, rows 1..n
+  float* v = u + n1;          // column potentials
+  float* minv = v + n1;
+  int* p = reinterpret_cast<int*>(minv + n1);  // col -> row (1-indexed)
+  int* way = p + n1;
+  int* flags = way + n1;      // bit 0: column used, bit 1: row in the tree
+  const float* a = cost + static_cast<long long>(b) * n * n;
+
+  for (int j = lane; j < n1; j += 32) {
+    u[j] = 0.0f;
+    v[j] = 0.0f;
+    p[j] = 0;
+  }
+  __syncwarp();
+  for (int i = 1; i <= n; ++i) {
+    for (int j = lane; j < n1; j += 32) {
+      minv[j] = kInf;
+      way[j] = 0;
+      flags[j] = 0;
+    }
+    if (lane == 0) p[0] = i;
+    __syncwarp();
+    int j0 = 0;
+    do {
+      const int i0 = p[j0];
+      const float u_i0 = u[i0];
+      if (lane == 0) {
+        flags[j0] |= 1;
+        flags[i0] |= 2;
+      }
+      __syncwarp();
+      float m = CUDART_INF_F;  // this lane's best live column
+      int j1 = n1;
+      for (int j = lane; j < n1; j += 32) {
+        if (j >= 1 && !(flags[j] & 1)) {
+          const float cur = a[(i0 - 1) * n + (j - 1)] - u_i0 - v[j];
+          float mj = minv[j];
+          if (cur < mj) {
+            mj = cur;
+            minv[j] = cur;
+            way[j] = j0;
+          }
+          const float bid = fminf(mj, kInf);  // a live bid is below +inf
+          if (bid < m) {  // ascending j: the lowest index wins a tie
+            m = bid;
+            j1 = j;
+          }
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float om = __shfl_xor_sync(kFull, m, off);
+        const int oj = __shfl_xor_sync(kFull, j1, off);
+        if (om < m || (om == m && oj < j1)) {
+          m = om;
+          j1 = oj;
+        }
+      }
+      const float delta = m;
+      for (int j = lane; j < n1; j += 32) {
+        const int f = flags[j];
+        if (f & 2) u[j] += delta;
+        if (f & 1) {
+          v[j] -= delta;
+        } else {
+          minv[j] -= delta;
+        }
+      }
+      j0 = j1;
+      __syncwarp();
+    } while (p[j0] != 0);
+    if (lane == 0) {
+      do {
+        const int j1 = way[j0];
+        p[j0] = p[j1];
+        j0 = j1;
+      } while (j0 != 0);
+    }
+    __syncwarp();
+  }
+  for (int j = lane + 1; j < n1; j += 32) {
+    out[static_cast<long long>(b) * n + (j - 1)] = p[j] - 1;
+  }
+}
+
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() as an int.
+// Each launcher runs its kernel on `stream` and returns cudaGetLastError()
+// (or the error of raising the shared-memory limit) as an int.
+//
 // cost: device f32 [batch, nr, nc], contiguous; out: device int32 [batch, nc].
 // The caller guarantees 0 <= nr <= nc <= 31.
 extern "C" int sedt_jv_lane(const float* cost, int* out, int batch, int nr,
@@ -123,5 +358,40 @@ extern "C" int sedt_jv_lane(const float* cost, int* out, int batch, int nr,
   const size_t smem = sizeof(float) * kWarpsPerBlock * nr * nc;
   jv_lane_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       cost, out, batch, nr, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Same arguments; the caller guarantees 0 <= nr <= nc <= 1023.  The cost
+// block of one problem must fit the 227 KB of shared memory a block can have.
+extern "C" int sedt_jv_block(const float* cost, int* out, int batch, int nr,
+                             int nc, void* stream) {
+  if (batch <= 0) return 0;
+  const int threads = ((nc + 1 + 31) / 32) * 32;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(nr) * nc + (nr + 1) + 32) +
+                      sizeof(int) * (32 + 2 * (nc + 1));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jv_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  jv_block_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      cost, out, nr, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cost: device f32 [batch, n, n], contiguous; out: device int32 [batch, n].
+extern "C" int sedt_jv_square(const float* cost, int* out, int batch, int n,
+                              void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  const size_t smem = 6 * sizeof(float) * (n + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jv_square_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  jv_square_kernel<<<batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      cost, out, n);
   return static_cast<int>(cudaGetLastError());
 }

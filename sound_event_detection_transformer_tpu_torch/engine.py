@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``engine.make_eval_step``: the deterministic
 forward, the set criterion (one joint Hungarian solve of the final and aux
-decoder layers, kernel K1 on the GPU) and the fusion post-processing, with
+decoder layers, kernel K1 or K2 on the GPU) and the fusion post-processing, with
 the same result dict.  The training steps land in later slices.
 """
 from __future__ import annotations

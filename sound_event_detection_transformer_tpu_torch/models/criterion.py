@@ -208,7 +208,7 @@ def joint_match(
     fl: bool = False,
 ) -> Tuple[MatchResult, Optional[MatchResult]]:
     """Plain matching of the final and all aux decoder layers in ONE batched
-    LSAP solve: L layers x B clips problems, one launch of kernel K1.
+    LSAP solve: L layers x B clips problems, one launch of kernel K1 or K2.
     Returns (final-layer result [B, ..], aux results [A, B, ..] or None)."""
     kw = _match_kw(lcfg, fl)
     if "aux_logits" not in outputs:

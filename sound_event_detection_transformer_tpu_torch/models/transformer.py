@@ -3,8 +3,8 @@
 Counterpart of the JAX package's ``models/transformer.py``: positional
 embeddings are added to Q/K (not V) at every attention, layers are pre-norm
 or post-norm, and the decoder returns the stack of all layers' normed
-outputs.  Every LayerNorm uses eps 1e-6, flax's default.  This slice is the
-evaluation path, so dropout is the identity.
+outputs.  Every LayerNorm uses eps 1e-6, flax's default.  Only the
+deterministic paths are ported so far, so dropout is the identity.
 """
 from __future__ import annotations
 

@@ -2,15 +2,16 @@
 
 Counterpart of the JAX package's ``ops/attention.py``.  Masks are additive
 biases (0 = keep, -1e9 = drop) and the softmax runs in f32 whatever the
-compute dtype.  Long keys dispatch to the flash kernel K4, which is not
-ported yet: that case raises instead of running the plain path.
+compute dtype.  Long keys on the GPU dispatch to the flash kernel K4
+(:mod:`.flash_attention`); everything else takes the plain path.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
+
+from .flash_attention import flash_attention, reference_attention
 
 NEG_INF_BIAS = -1.0e9
 FLASH_MIN_SEQ = 512
@@ -31,18 +32,16 @@ def scaled_dot_attention(
     dropout_rate: float = 0.0,
     use_flash: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Multi-head attention core; returns [B, H, Sq, D] in v's dtype."""
+    """Multi-head attention core; returns [B, H, Sq, D] in v's dtype.
+
+    ``use_flash=None`` picks kernel K4 for ``Sk >= FLASH_MIN_SEQ`` without
+    dropout on CUDA tensors.  ``use_flash=True`` on CPU tensors runs the
+    kernel's plain blockwise version.
+    """
     if use_flash is None:
         use_flash = k.shape[-2] >= FLASH_MIN_SEQ and dropout_rate == 0.0 and k.is_cuda
     if use_flash:
-        raise NotImplementedError(
-            "flash attention (kernel K4, _flash_kernel) is not ported yet; "
-            f"Sk = {k.shape[-2]} >= FLASH_MIN_SEQ = {FLASH_MIN_SEQ} selects it"
-        )
+        return flash_attention(q, k, v, bias)
     if dropout_rate > 0.0:
         raise NotImplementedError("attention dropout lands with the training slice")
-    logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(q.shape[-1]))
-    if bias is not None:
-        logits = logits + bias
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v)
+    return reference_attention(q, k, v, bias)

@@ -1,123 +1,132 @@
-"""Kernel K1: batched rectangular linear sum assignment (Jonker-Volgenant).
+"""Kernels K1, K2 and K3: batched linear sum assignment (Jonker-Volgenant).
 
 ``lsap(cost)`` solves B independent problems ``cost [B, nr, nc]`` (nr <= nc)
 exactly and returns row-for-column ``[B, nc]`` int32, with -1 on the nc - nr
 columns left free.  It is the counterpart of the JAX package's
-``pallas_hungarian_packed`` lane-packed kernel (``_jv_lane_kernel``).
+``pallas_hungarian_packed`` and dispatches as that does: the warp-per-problem
+kernel K1 (``_jv_lane_kernel``) when nc + 1 <= 32, the block-per-problem
+kernel K2 (``_jv_packed_kernel``) for wider problems or when ``force_block``
+is set.  ``lsap_square(cost [B, n, n])`` is the counterpart of
+``pallas_hungarian``: kernel K3 (``_jv_kernel``), one warp per square problem
+with the reference formulation's data-dependent loops.
 
-* On a CUDA tensor it launches the hand-written warp-per-problem kernel in
+* On a CUDA tensor each wrapper launches its hand-written kernel of
   ``csrc/hungarian_jv.cu`` (built with nvcc for sm_90a on first use, loaded
-  with ctypes) or raises.  Problems wider than 31 columns need the JAX
-  package's second kernel (``_jv_packed_kernel``), which is not ported yet.
-* On a CPU tensor it runs :func:`lsap_plain`, the same algorithm written as
-  masked fixed-bound loops vectorised over problems.
+  with ctypes) or raises, and counts the launch in its ``launches``.
+* On a CPU tensor it runs the kernel's plain PyTorch version:
+  :func:`lsap_plain` for K1 and K2, :func:`lsap_square_plain` for K3.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ._build import load_library
+
 INF = 1.0e18
 LSEG = 32  # one warp: the virtual root plus at most 31 columns
-
-_PKG_DIR = Path(__file__).resolve().parents[1]
-_SOURCE = _PKG_DIR / "csrc" / "hungarian_jv.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-
-def _nvcc() -> str:
-    """nvcc from ``$CUDA_HOME``, else ``PATH``, else the toolkit's default prefix."""
-    home = os.environ.get("CUDA_HOME")
-    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
-    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for path in candidates:
-        if path and os.path.exists(path):
-            return path
-    raise RuntimeError("nvcc not found: kernel K1 (csrc/hungarian_jv.cu) cannot be built")
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/hungarian_jv.cu`` into ``build/torch_kernels`` once per
-    source version (the file name carries a hash of the source) and return
-    the shared library's path."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libhungarian_jv-{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
-    return lib
+MAX_BLOCK = 1024  # one block: the virtual root plus at most 1023 columns
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    lib.sedt_jv_lane.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.sedt_jv_lane.restype = ctypes.c_int
+    lib = load_library("hungarian_jv")
+    rect = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+    for fn in (lib.sedt_jv_lane, lib.sedt_jv_block):
+        fn.argtypes = rect
+        fn.restype = ctypes.c_int
+    lib.sedt_jv_square.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
+    lib.sedt_jv_square.restype = ctypes.c_int
     return lib
 
 
-def lsap(cost: torch.Tensor) -> torch.Tensor:
-    """Exact batched LSAP: cost f32 [B, nr, nc] (nr <= nc) -> [B, nc] int32.
-
-    CPU tensors take :func:`lsap_plain`; CUDA tensors launch kernel K1 and
-    count the launch in ``lsap.launches``.
-    """
+def _check_cost(cost: torch.Tensor) -> None:
     if cost.dim() != 3:
         raise ValueError(f"cost must be [B, nr, nc], got {tuple(cost.shape)}")
     if cost.dtype != torch.float32:
         raise TypeError(f"cost must be float32, got {cost.dtype}")
-    b, nr, nc = cost.shape
-    if nr > nc:
-        raise ValueError(f"rectangular solve needs rows <= cols, got {nr} x {nc}")
-    if cost.device.type == "cpu":
-        return lsap_plain(cost)
-    if cost.device.type != "cuda":
+    if cost.shape[1] > cost.shape[2]:
+        raise ValueError(f"rectangular solve needs rows <= cols, got "
+                         f"{cost.shape[1]} x {cost.shape[2]}")
+    if cost.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {cost.device}")
-    if nc + 1 > LSEG:
-        raise NotImplementedError(
-            f"nc + 1 = {nc + 1} > {LSEG}: this width needs kernel K2 "
-            "(_jv_packed_kernel), which is not ported yet"
-        )
-    if not cost.is_contiguous():
+    if cost.is_cuda and not cost.is_contiguous():
         raise ValueError("cost must be contiguous")
-    out = torch.empty((b, nc), dtype=torch.int32, device=cost.device)
+
+
+def _launch(wrapper, name: str, cost: torch.Tensor, *dims: int) -> torch.Tensor:
+    """Run the C launcher ``name`` of a wrapper on ``cost`` and count it."""
+    out = torch.empty((cost.shape[0], cost.shape[2]), dtype=torch.int32, device=cost.device)
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
-        err = _library().sedt_jv_lane(cost.data_ptr(), out.data_ptr(), b, nr, nc, stream)
+        err = getattr(_library(), name)(cost.data_ptr(), out.data_ptr(), cost.shape[0],
+                                        *dims, stream)
     if err != 0:
-        raise RuntimeError(f"kernel K1 launch failed: cudaError {err}")
-    lsap.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    wrapper.launches += 1
     return out
 
 
-lsap.launches = 0
+def lsap_lane(cost: torch.Tensor) -> torch.Tensor:
+    """K1: cost f32 [B, nr, nc], nr <= nc <= 31 -> [B, nc] int32."""
+    _check_cost(cost)
+    _, nr, nc = cost.shape
+    if nc + 1 > LSEG:
+        raise ValueError(f"nc + 1 = {nc + 1} > {LSEG}: kernel K1 holds one problem in a warp")
+    if not cost.is_cuda:
+        return lsap_plain(cost)
+    return _launch(lsap_lane, "sedt_jv_lane", cost, nr, nc)
+
+
+def lsap_block(cost: torch.Tensor) -> torch.Tensor:
+    """K2: cost f32 [B, nr, nc], nr <= nc <= 1023 -> [B, nc] int32."""
+    _check_cost(cost)
+    _, nr, nc = cost.shape
+    if nc + 1 > MAX_BLOCK:
+        raise ValueError(f"nc + 1 = {nc + 1} > {MAX_BLOCK}: kernel K2 holds one problem in "
+                         "a block")
+    if not cost.is_cuda:
+        return lsap_plain(cost)
+    return _launch(lsap_block, "sedt_jv_block", cost, nr, nc)
+
+
+def lsap_square(cost: torch.Tensor) -> torch.Tensor:
+    """K3: cost f32 [B, n, n] -> [B, n] int32, the row of each column."""
+    _check_cost(cost)
+    _, n, nc = cost.shape
+    if n != nc:
+        raise ValueError(f"cost must be square, got {n} x {nc}")
+    if not cost.is_cuda:
+        return lsap_square_plain(cost)
+    return _launch(lsap_square, "sedt_jv_square", cost, n)
+
+
+lsap_lane.launches = 0
+lsap_block.launches = 0
+lsap_square.launches = 0
+
+
+def lsap(cost: torch.Tensor, force_block: bool = False) -> torch.Tensor:
+    """Exact batched LSAP: cost f32 [B, nr, nc] (nr <= nc) -> [B, nc] int32.
+
+    K1 when nc + 1 <= 32, else K2; ``force_block`` pins K2 at any width (the
+    JAX function's ``force_sublane``).
+    """
+    if cost.dim() == 3 and cost.shape[2] + 1 <= LSEG and not force_block:
+        return lsap_lane(cost)
+    return lsap_block(cost)
 
 
 def lsap_plain(cost: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of K1, on any device.
+    """The plain PyTorch version of K1 and K2, on any device.
 
-    Same arithmetic as the kernel, over [B, nr+1, nc+1] 1-indexed tensors
+    It is K2's own formulation in the JAX package (``_jv_packed_kernel``):
+    fixed-bound masked loops over a batch of problems.  Same arithmetic as
+    the kernels, over [B, nr+1, nc+1] 1-indexed tensors
     (column 0 is the virtual root).  Inserting row i needs at most i Dijkstra
     expansions and an augmenting path of at most i links, so both inner loops
     run a fixed i steps with per-problem ``active`` / ``walk`` masks that
@@ -171,3 +180,54 @@ def lsap_plain(cost: torch.Tensor) -> torch.Tensor:
             j0 = torch.where(walk, j1, j0)
             walk = walk & (j0 != 0)
     return (p[:, 1:] - 1).to(torch.int32)
+
+
+def lsap_square_plain(cost: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K3, on any device: the JAX package's
+    ``jv_body``, one problem at a time, with its data-dependent loops.  The
+    assignment p stays on the host, since only single entries are read."""
+    b, n, _ = cost.shape
+    dev = cost.device
+    n1 = n + 1
+    ids = torch.arange(n1, device=dev)
+    in_range = ids >= 1
+    out = torch.empty((b, n), dtype=torch.int32)
+    for bi in range(b):
+        a = torch.zeros((n1, n1), dtype=torch.float32, device=dev)
+        a[1:, 1:] = cost[bi]
+        u = torch.zeros(n1, dtype=torch.float32, device=dev)
+        v = torch.zeros(n1, dtype=torch.float32, device=dev)
+        p = [0] * n1  # col -> row, 1-indexed
+        for i in range(1, n1):
+            p[0] = i
+            minv = torch.full((n1,), INF, dtype=torch.float32, device=dev)
+            used = torch.zeros(n1, dtype=torch.bool, device=dev)
+            way = torch.zeros(n1, dtype=torch.long, device=dev)
+            row_in_tree = torch.zeros(n1, dtype=torch.bool, device=dev)
+            j0 = 0
+            while True:
+                i0 = p[j0]
+                used = used | (ids == j0)
+                row_in_tree = row_in_tree | (ids == i0)
+                cur = a[i0] - u[i0] - v
+                valid = in_range & ~used
+                better = valid & (cur < minv)
+                minv = torch.where(better, cur, minv)
+                way = torch.where(better, j0, way)
+                # +inf on dead columns, live bids clamped to INF: a live one wins
+                masked = torch.where(valid, minv.clamp(max=INF), float("inf"))
+                j1 = int(masked.argmin())  # the first of equal minima
+                delta = masked[j1]
+                u = u + delta * row_in_tree
+                v = v - delta * used
+                minv = minv - delta * ~used
+                j0 = j1
+                if p[j0] == 0:
+                    break
+            way = way.tolist()
+            while j0 != 0:
+                j1 = way[j0]
+                p[j0] = p[j1]
+                j0 = j1
+        out[bi] = torch.tensor(p[1:], dtype=torch.int32) - 1
+    return out.to(dev)

@@ -1,7 +1,7 @@
 """Batched Hungarian matching between queries and dense targets.
 
 Counterpart of the JAX package's ``ops/matcher.py`` for the evaluation path:
-the matching cost, the rectangular LSAP dispatch to kernel K1
+the matching cost, the LSAP dispatch to kernels K1 and K2
 (:mod:`.hungarian`), the decoding of assignments into query/target maps and
 the per-query loss coefficients.  The relaxed fine-tune matching waits for
 the training slice.
@@ -70,10 +70,26 @@ def compute_cost_matrix(
     return torch.where(tgt_valid[:, None, :], cost, BIG)
 
 
+def _square_pad(cost: torch.Tensor) -> torch.Tensor:
+    """Pad a [B, Q, M] cost to square [B, N, N] with dummy cells at BIG."""
+    b, q, m = cost.shape
+    n = max(q, m)
+    out = torch.full((b, n, n), BIG, dtype=cost.dtype, device=cost.device)
+    out[:, :q, :m] = cost
+    return out
+
+
+def solve_lsap(cost_sq: torch.Tensor) -> torch.Tensor:
+    """Square batched LSAP over arbitrary leading dims: [..., N, N] -> [..., N]."""
+    n = cost_sq.shape[-1]
+    out = lsap(cost_sq.detach().float().reshape(-1, n, n).contiguous())
+    return out.reshape(cost_sq.shape[:-2] + (n,))
+
+
 def _solve_rect_flat(cost: torch.Tensor) -> torch.Tensor:
     """Rectangular LSAP [B, Q, M] (Q <= M) -> [B, M] row-for-column, -1 on
-    the M - Q free columns.  One call of kernel K1 (its plain version on the
-    CPU) for the whole batch."""
+    the M - Q free columns.  One launch for the whole batch: kernel K1 up to
+    31 columns, K2 beyond (their plain version on the CPU)."""
     return lsap(cost.detach().float().contiguous())
 
 

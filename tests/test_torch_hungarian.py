@@ -1,7 +1,8 @@
-"""Kernel K1 of the PyTorch port (ops/hungarian.py): the plain version that
-runs on the CPU against the JAX package's lane-packed Pallas kernel (interpret
-mode), its CPU solve and scipy.  The CUDA kernel is held against the plain
-version on the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
+"""Kernels K1, K2 and K3 of the PyTorch port (ops/hungarian.py): the plain
+versions that run on the CPU against the JAX package's Pallas kernels in
+interpret mode (lane-packed, sublane-packed and the square reference one), its
+CPU solve and scipy.  The CUDA kernels are held against the plain versions on
+the card by ``test_torch_gpu.py`` and ``chip_smoke.py``.
 
 Assignments are compared by optimal cost, to 1e-2 * max(1, |cost|), since
 ties may pick different indices."""
@@ -11,10 +12,15 @@ import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
 
+import chip_smoke
 from chip_smoke import assignment_cost, jv_expansions, k1_costs
+from sound_event_detection_transformer_tpu.ops import matcher as jmatcher
 from sound_event_detection_transformer_tpu.ops.matcher import _solve_rect_flat
-from sound_event_detection_transformer_tpu.ops.pallas.hungarian import pallas_hungarian_packed
-from sound_event_detection_transformer_tpu_torch.ops import hungarian
+from sound_event_detection_transformer_tpu.ops.pallas.hungarian import (
+    pallas_hungarian,
+    pallas_hungarian_packed,
+)
+from sound_event_detection_transformer_tpu_torch.ops import hungarian, matcher
 
 torch.set_num_threads(2)
 
@@ -37,9 +43,9 @@ KINDS = ["random", "ties", "big"]
 def test_plain_vs_scipy_and_jax_cpu_solve(shape, kind):
     rng = np.random.RandomState(3 * SHAPES.index(shape) + KINDS.index(kind))
     costs = k1_costs(rng, shape, kind)
-    hungarian.lsap.launches = 0
+    chip_smoke.reset_launch_counts()
     out = hungarian.lsap(torch.from_numpy(costs)).numpy()
-    assert hungarian.lsap.launches == 0  # CPU tensors never launch the kernel
+    assert not any(chip_smoke.launch_counts().values())  # CPU tensors never launch a kernel
     _check(costs, out)
     ref = np.asarray(_solve_rect_flat(jnp.asarray(costs)))
     np.testing.assert_allclose(assignment_cost(costs, out), assignment_cost(costs, ref),
@@ -62,6 +68,88 @@ def test_plain_vs_pallas_lane_kernel(shape):
             np.testing.assert_array_equal(out < 0, ref < 0)
 
 
+WIDE = [(24, 40, 60), (8, 33, 33), (3, 1, 40), (2, 1, 1), (11, 14, 14), (9, 10, 20)]
+
+
+@pytest.mark.parametrize("shape", WIDE, ids=lambda s: "x".join(map(str, s)))
+def test_plain_vs_pallas_sublane_kernel(shape):
+    """K2's counterpart, the JAX package's sublane-packed kernel, forced in
+    interpret mode: the widths past one warp, edge sizes and a narrow one."""
+    rng = np.random.RandomState(sum(shape))
+    for kind in KINDS:
+        costs = k1_costs(rng, shape, kind)
+        out = hungarian.lsap(torch.from_numpy(costs), force_block=True).numpy()
+        ref = np.asarray(pallas_hungarian_packed(jnp.asarray(costs), interpret=True,
+                                                 force_sublane=True))
+        _check(costs, out)
+        np.testing.assert_allclose(assignment_cost(costs, out), assignment_cost(costs, ref),
+                                   rtol=1e-2, atol=1e-2)
+        if kind == "random":  # a unique optimum: the same assignment
+            np.testing.assert_array_equal(out, ref)
+
+
+def test_dispatch_paths_agree():
+    """``lsap`` picks K1 up to 31 columns and K2 beyond, as the JAX function
+    picks its lane and sublane kernels; the forced and the automatic path
+    give the same answer, and the warp kernel refuses what it cannot hold."""
+    rng = np.random.RandomState(11)
+    narrow = torch.from_numpy(k1_costs(rng, (5, 10, 20), "random"))
+    wide = torch.from_numpy(k1_costs(rng, (3, 20, hungarian.LSEG), "random"))
+    np.testing.assert_array_equal(hungarian.lsap(narrow).numpy(),
+                                  hungarian.lsap(narrow, force_block=True).numpy())
+    np.testing.assert_array_equal(hungarian.lsap(narrow).numpy(),
+                                  hungarian.lsap_lane(narrow).numpy())
+    np.testing.assert_array_equal(hungarian.lsap(wide).numpy(), hungarian.lsap_block(wide).numpy())
+    with pytest.raises(ValueError, match="K1"):
+        hungarian.lsap_lane(wide)
+    with pytest.raises(ValueError, match="K2"):
+        hungarian.lsap(torch.zeros(1, 2, hungarian.MAX_BLOCK))
+
+
+def test_square_plain_vs_pallas_reference_kernel():
+    """K3's counterpart, ``pallas_hungarian`` in interpret mode, on the JAX
+    package's own test: BIG-padded square problems of mixed real size."""
+    rng = np.random.RandomState(12)
+    n, b = 16, 8
+    costs = np.full((b, n, n), matcher.BIG, dtype=np.float32)
+    for i in range(b):
+        k = rng.randint(2, n + 1)
+        costs[i, :k, :k] = rng.randn(k, k) * rng.uniform(0.1, 10)
+    chip_smoke.reset_launch_counts()
+    out = hungarian.lsap_square(torch.from_numpy(costs)).numpy()
+    assert not any(chip_smoke.launch_counts().values())
+    ref = np.asarray(pallas_hungarian(jnp.asarray(costs), interpret=True))
+    _check(costs, out)
+    np.testing.assert_allclose(assignment_cost(costs, out), assignment_cost(costs, ref),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [1, 7, 33])
+def test_square_plain_vs_scipy_and_rect_plain(n, kind):
+    """K3's plain version shares no code with K1's and K2's: equal optimum."""
+    costs = k1_costs(np.random.RandomState(n), (3, n, n), kind)
+    out = hungarian.lsap_square(torch.from_numpy(costs)).numpy()
+    _check(costs, out)
+    rect = hungarian.lsap(torch.from_numpy(costs)).numpy()
+    np.testing.assert_allclose(assignment_cost(costs, out), assignment_cost(costs, rect),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_square_pad_and_solve_lsap_match_jax():
+    rng = np.random.RandomState(13)
+    cost = rng.randn(2, 3, 4, 6).astype(np.float32)
+    sq = matcher._square_pad(torch.from_numpy(cost[0]))
+    np.testing.assert_array_equal(sq.numpy(), np.asarray(jmatcher._square_pad(jnp.asarray(cost[0]))))
+    stacked = torch.stack([matcher._square_pad(torch.from_numpy(c)) for c in cost])  # [2, 3, 6, 6]
+    got = matcher.solve_lsap(stacked).numpy()
+    want = np.asarray(jmatcher.solve_lsap(jnp.asarray(stacked.numpy())))
+    assert got.shape == want.shape == (2, 3, 6)
+    flat = stacked.numpy().reshape(-1, 6, 6)
+    np.testing.assert_allclose(assignment_cost(flat, got.reshape(-1, 6)),
+                               assignment_cost(flat, want.reshape(-1, 6)), rtol=1e-2, atol=1e-2)
+
+
 def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         hungarian.lsap(torch.zeros(2, 5, 3))  # rows > cols
@@ -69,6 +157,8 @@ def test_wrapper_rejects_bad_input():
         hungarian.lsap(torch.zeros(2, 3, 5, dtype=torch.float64))
     with pytest.raises(ValueError):
         hungarian.lsap(torch.zeros(3, 5))
+    with pytest.raises(ValueError, match="square"):
+        hungarian.lsap_square(torch.zeros(2, 3, 5))
 
 
 def test_plain_terminates_on_nan_costs():
@@ -79,6 +169,11 @@ def test_plain_terminates_on_nan_costs():
     out = hungarian.lsap(costs)
     assert out.shape == (2, 6)
     assert sorted(int(r) for r in out[0] if r >= 0) == [0, 1, 2, 3]
+    # the square version's loops are data-dependent: they must end all the same
+    square = torch.full((2, 5, 5), float("nan"))
+    square[1, :, 2:] = float("inf")
+    out = hungarian.lsap_square(square)
+    assert sorted(out[0].tolist()) == sorted(out[1].tolist()) == [0, 1, 2, 3, 4]
 
 
 def test_expansion_count_behind_the_bound():

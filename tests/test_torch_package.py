@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points never fall back to the CPU, kernels that are not
-ported yet raise, and ``chip_smoke.py`` fails without a GPU."""
+package, its entry points never fall back to the CPU, every kernel's wrapper
+dispatches (none raises "not ported"), and ``chip_smoke.py`` fails without a
+GPU."""
 import ast
 import os
 import shutil
@@ -14,6 +15,7 @@ import torch
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.engine import make_eval_step
 from sound_event_detection_transformer_tpu_torch.models import build_model, resolve_device
+from sound_event_detection_transformer_tpu_torch.ops import _build, attention
 from sound_event_detection_transformer_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     scaled_dot_attention,
@@ -23,7 +25,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sound_event_detection_transformer_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "sound_event_detection_transformer_tpu"}
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py"]
 
 
 def _imported_roots(path: Path):
@@ -54,6 +56,9 @@ def test_port_runs_without_loading_jax():
         "torch.set_num_threads(2)\n"
         "from sound_event_detection_transformer_tpu_torch.config import SEDTConfig\n"
         "from sound_event_detection_transformer_tpu_torch.models import build_model\n"
+        "from sound_event_detection_transformer_tpu_torch import predict_cli, train_lib\n"
+        "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
+        "import predict_torch\n"
         "cfg = SEDTConfig.tiny_test()\n"
         "model, wd = build_model(cfg, device='cpu')\n"
         "m = cfg.model\n"
@@ -89,13 +94,45 @@ def test_bare_cuda_means_the_current_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_flash_dispatch_raises_until_k4_is_ported():
-    q = torch.zeros(1, 2, 4, 8)
-    k = torch.zeros(1, 2, FLASH_MIN_SEQ, 8)
-    with pytest.raises(NotImplementedError, match="K4"):
-        scaled_dot_attention(q, k, k, use_flash=True)
+def test_flash_dispatch_raises_until_k4_is_ported(monkeypatch):
+    """K4 is ported, so the dispatch that used to raise now runs: forced on
+    CPU tensors it takes the kernel's plain blockwise version, the automatic
+    rule leaves CPU tensors on the non-flash path, and only attention dropout
+    still waits for the training slice."""
+    calls = []
+    real = attention.flash_attention
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda *a: (calls.append(a[1].shape[-2]), real(*a))[1])
+    rng = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 2, 4, 8, generator=rng)
+    k = torch.randn(1, 2, FLASH_MIN_SEQ, 8, generator=rng)
+    flash = scaled_dot_attention(q, k, k, use_flash=True)
+    assert calls == [FLASH_MIN_SEQ]
     # the automatic rule picks flash only for CUDA tensors
-    assert scaled_dot_attention(q, k, k).shape == (1, 2, 4, 8)
+    plain = scaled_dot_attention(q, k, k)
+    assert calls == [FLASH_MIN_SEQ] and plain.shape == (1, 2, 4, 8)
+    torch.testing.assert_close(flash, plain, rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        scaled_dot_attention(q, k, k, dropout_rate=0.1)
+    for path in (PORT / "ops" / "attention.py", PORT / "ops" / "hungarian.py"):
+        assert "not ported" not in path.read_text()
+
+
+def test_every_cuda_source_is_listed_for_the_build():
+    """``python3 chip_smoke.py`` alone builds every source under csrc/."""
+    assert sorted(p.stem for p in (PORT / "csrc").glob("*.cu")) == sorted(_build.SOURCES)
+    for name in _build.SOURCES:
+        text = (PORT / "csrc" / f"{name}.cu").read_text()
+        assert 'extern "C"' in text and "torch/extension.h" not in text
+
+
+def test_kernel_builds_raise_without_nvcc(monkeypatch, tmp_path):
+    """No fallback: a build that cannot run raises and leaves nothing behind."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "no-such-nvcc"))
+    with pytest.raises((RuntimeError, OSError)):
+        _build.build_library("hungarian_jv")
+    assert not list((tmp_path / "kernels").glob("*.so"))
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
