@@ -11,10 +11,14 @@ nvcc for sm_90a, all started together), then:
 1. prints the card's name and power limit and each build's time;
 2. holds every kernel against its plain PyTorch version on the card: the
    Hungarian kernels K1, K2 and K3 also against scipy on the host (random,
-   tie-heavy and BIG-padded costs, K2 against K1 too), the flash-attention
-   kernel K4 at the long clip's two shapes in bf16 and f32, at a ragged tiny
-   shape and at head dims 64 and 128, with a key-padding bias (one clip's
-   keys all padded), a full bias and none;
+   tie-heavy and BIG-padded costs, K2 against K1 too; K2's warp variant at
+   nc + 1 = 33, 64, 65, 128 and 256 and its block variant beyond), the
+   flash-attention kernel K4 at the long clip's two shapes in bf16 and f32,
+   at a ragged tiny shape and at head dims 64 and 128, with a key-padding
+   bias (one clip's keys all padded), a full bias and none; its tensor-core
+   variant also at query sides of 1, 16, 17 and 41 rows, at key sides below
+   one tile and ragged, with the keys split over blocks, and a bf16 input on
+   an 8- but not 16-byte boundary, which must take the f32-core variant;
 3. runs the evaluation step at the tiny f32 geometry, and the tiny long-clip
    predict (528 encoder tokens, so the card takes K4), on the CPU and on the
    card from the same weights, and compares the two (TF32 off, to 1e-3);
@@ -24,15 +28,21 @@ nvcc for sm_90a, all started together), then:
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
    bf16 autocast, seeded waveforms and weights, through ``make_infer`` and
-   ``decode_strong``: K4 must launch 6 times per forward;
+   ``decode_strong``: K4 must launch 6 times per forward, every time its
+   tensor-core variant;
 6. drives the long-clip evaluation step (24 problems of 40 x 60 per step):
-   K2 must launch once per step and K4 six times; the step's own cost is
+   K2 must launch once per step, its warp variant, and K4 six times; the
+   step's own cost is
    solved again by scipy, and by K3 through ``lsap_square`` on the
    square-padded copy;
 7. times every kernel at the path's shape (device time: CUDA events around a
    replayed CUDA graph of 20 launches; and per call launched from Python) and
-   its plain version, computes its bound from bytes and operations, and for
-   K4 times the library call ``F.scaled_dot_product_attention``;
+   its plain version, computes its bound from bytes and operations, prints a
+   second figure beside it on a line of its own (K1-K3: a model of the
+   longest search's dependent steps, counted by hand from the sources and
+   priced at step latencies timed on the card, with the cycles an expansion
+   really took; K4: its exponentials at an assumed special-function rate),
+   and for K4 times the library call ``F.scaled_dot_product_attention``;
 8. profiles the 10 s evaluation step and the long predict into
    ``chiprun_out/``.
 
@@ -44,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -88,8 +99,34 @@ BF16_OPS_PER_S = 989e12
 # subtractions, a compare and two selects to relax, a compare-select for the
 # minimum, two updates of the potentials.
 JV_OPS_PER_COLUMN = 8
+# Exponentials an SM's special-function units finish per clock (4 units in
+# each of its 4 partitions): the assumption behind K4's tighter figure.
+EXP_PER_CLOCK_PER_SM = 16
+# A model, not a bound: the dependent steps of one Dijkstra expansion, counted
+# by hand from each JV kernel's source as it stands (shared-memory reads,
+# shuffles, integer warp minima, f32-pipe instructions that must follow one
+# another before the next expansion can start).  Nothing ties the counts to
+# the sources: recount after an edit there.  The measured figure beside it is
+# the cycles an expansion took, from the kernel's device time.
+#   K1: p[j0] and u[i0] by shuffle (the cost read runs beside the second), two
+#       subtractions, compare, select and clamp, five butterfly levels of a
+#       shuffle and three compares and selects, so 7 shuffles and 20 others.
+#   K2, warp variant with C columns a lane: u[i0] and the cost entry read side
+#       by side, two subtractions, compare, select, clamp and the live select,
+#       the lane's fold (two a column), three for the ordered key, a warp
+#       minimum, compare and select, a second warp minimum, unpack and address.
+#   K3 with c = ceil((n + 1) / 32) columns a lane: p, u, the flags after the
+#       lane-0 write, a pass (a read, two subtractions, four more, then two a
+#       further column), the butterfly, an update pass and the read after it.
+JV_CHAIN_STEPS = {
+    "K1": lambda c: {"shared_read": 0, "shuffle": 7, "warp_min": 0, "f32_add": 20},
+    "K2": lambda c: {"shared_read": 1, "shuffle": 0, "warp_min": 2, "f32_add": 13 + 2 * c},
+    "K3": lambda c: {"shared_read": 6, "shuffle": 5, "warp_min": 0, "f32_add": 22 + 2 * (c - 1)},
+}
 K1_SHAPES = [(192, 10, 20), (192, 20, 20), (1200, 20, 20)]
 WIDE_SHAPES = [(24, 40, 60), (192, 10, 20), (8, 100, 100)]  # K2 and K3
+K2_WARP_SHAPES = [(6, 20, 32), (6, 30, 63), (6, 30, 64), (4, 50, 127), (3, 40, 255)]
+K2_BLOCK_SHAPES = [(2, 60, 256), (2, 120, 300)]  # nc + 1 = 257 and beyond
 K1_COST_KINDS = ("random", "ties", "big")
 K3_PLAIN_PROBLEMS = 8  # K3's plain version solves one problem at a time: a few per batch
 SECONDS = 10.0
@@ -111,6 +148,33 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi states it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def latency_probe(dev: torch.device) -> dict:
+    """Cycles of one dependent step of each kind that a JV search is a chain
+    of, timed on the card by one warp over a few thousand steps (the tool of
+    ``csrc/latency_probe.cu``): a shared-memory read, an f32 add, a shuffle and
+    an integer warp minimum."""
+    lib = _build.load_library("latency_probe")
+    lib.sedt_latency_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.sedt_latency_probe.restype = ctypes.c_int
+    out = torch.zeros(6, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.sedt_latency_probe(out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sedt_latency_probe launch failed: cudaError {err}")
+    cycles = out.cpu().tolist()
+    names = ("shared_read", "f32_add", "shuffle", "warp_min")
+    return {name: cycles[i] / cycles[4] for i, name in enumerate(names)}
+
+
 def build_kernels() -> dict:
     """Start every source's nvcc build together; returns each build's seconds
     and the wall seconds of all under ``"all"``."""
@@ -130,13 +194,20 @@ def build_kernels() -> dict:
 def reset_launch_counts() -> None:
     for wrapper in (hungarian.lsap_lane, hungarian.lsap_block, hungarian.lsap_square,
                     flash_attention.flash_attention):
-        wrapper.launches = 0
+        for name in vars(wrapper):
+            if name.startswith("launches"):
+                setattr(wrapper, name, 0)
 
 
 def launch_counts() -> dict:
-    return {"K1": hungarian.lsap_lane.launches, "K2": hungarian.lsap_block.launches,
-            "K3": hungarian.lsap_square.launches,
-            "K4": flash_attention.flash_attention.launches}
+    """Every wrapper's count, and under ``"K2 warp"``, ``"K4 tensor"`` and so
+    on the counts of the variants that K2 and K4 dispatch between."""
+    k2, k4 = hungarian.lsap_block, flash_attention.flash_attention
+    return {"K1": hungarian.lsap_lane.launches, "K2": k2.launches,
+            "K3": hungarian.lsap_square.launches, "K4": k4.launches,
+            "K2 warp": k2.launches_warp, "K2 block": k2.launches_block,
+            "K4 tensor": k4.launches_tensor, "K4 f32": k4.launches_f32,
+            "K4 split": k4.launches_split}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -234,9 +305,15 @@ def k1_against_references(costs: np.ndarray, dev: torch.device, label: str) -> f
 
 
 def k2_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
-    """K2 against its plain version and scipy, and against K1 where K1 fits."""
+    """K2 against its plain version and scipy, and against K1 where K1 fits;
+    the launch must count into the variant that ``block_variant`` names."""
+    want = "K2 " + hungarian.block_variant(*costs.shape[1:])
+    before = launch_counts()
     err = lsap_against_references(hungarian.lsap_block, hungarian.lsap_plain, costs, dev,
                                   "K2 " + label)
+    after = launch_counts()
+    took = {k: after[k] - before[k] for k in ("K2", "K2 warp", "K2 block")}
+    assert took["K2"] == took[want] == 1, f"K2 at {label} should take {want}: {took}"
     if costs.shape[2] + 1 <= hungarian.LSEG:
         cost_dev = torch.from_numpy(costs).to(dev)
         via_k1 = assignment_cost(costs, hungarian.lsap_lane(cost_dev).cpu().numpy())
@@ -269,8 +346,14 @@ def k3_against_references(costs: np.ndarray, dev: torch.device, label: str) -> f
 def jv_expansions(costs: np.ndarray) -> int:
     """Dijkstra expansions that JV makes on these problems: the data-dependent
     part of a JV kernel's work (the same insertion order and tie-break)."""
-    total = 0
+    return sum(jv_expansions_each(costs))
+
+
+def jv_expansions_each(costs: np.ndarray) -> list:
+    """The expansions of each problem of the batch."""
+    each = []
     for a in costs.astype(np.float32):
+        total = 0
         nr, nc = a.shape
         u = np.zeros(nr + 1, np.float32)
         v = np.zeros(nc + 1, np.float32)
@@ -304,7 +387,8 @@ def jv_expansions(costs: np.ndarray) -> int:
                 j1 = way[j0]
                 p[j0] = p[j1]
                 j0 = j1
-    return total
+        each.append(total)
+    return each
 
 
 def jv_bound(cost: torch.Tensor) -> dict:
@@ -321,18 +405,37 @@ def jv_bound(cost: torch.Tensor) -> dict:
             "ops_ms": ops_ms}
 
 
+def jv_chain(name: str, cost: torch.Tensor, latency: dict, clock_hz: float) -> dict:
+    """A model of a JV kernel's time (hand counts, so no bound): the longest
+    search of the batch (expansions of one problem; problems run side by side)
+    times the cycles of one expansion's dependent steps, ``JV_CHAIN_STEPS`` at
+    the step latencies the probe timed on this card, over the SM clock."""
+    longest = max(jv_expansions_each(cost.cpu().numpy()))
+    columns_per_lane = -(-(cost.shape[2] + 1) // 32)
+    steps = JV_CHAIN_STEPS[name](columns_per_lane)
+    cycles = sum(n * latency[kind] for kind, n in steps.items())
+    return {"ms": longest * cycles / clock_hz * 1e3, "longest": longest, "cycles": cycles,
+            "steps": steps}
+
+
 def time_jv(name: str, kernel, plain, cost: torch.Tensor, card: str, plain_iters: int,
-            plain_warmup: int = 1) -> dict:
+            latency: dict, clock_hz: float, plain_warmup: int = 1) -> dict:
     ms = device_ms(lambda: kernel(cost))
     eager_ms = cuda_ms(lambda: kernel(cost), 100)
     plain_ms = cuda_ms(lambda: plain(cost), plain_iters, warmup=plain_warmup)
     bound = jv_bound(cost)
+    chain = jv_chain(name, cost, latency, clock_hz)
     print(f"{name} {list(cost.shape)}: {ms:.5f} ms on the device ({eager_ms:.5f} ms per call "
           f"launched back to back from Python), plain version {plain_ms:.3f} ms, "
           f"bound {bound['ms']:.7f} ms by {bound['by']} ({card})")
     print(f"{name} bound: {bound['bytes']} B in {bound['bytes_ms']:.7f} ms; "
           f"{bound['expansions']} expansions, {bound['ops']} f32 operations in "
           f"{bound['ops_ms']:.7f} ms")
+    print(f"{name} chain model (hand-counted steps, not a bound): {chain['ms']:.5f} ms = "
+          f"{chain['longest']} expansions in the longest search x {chain['cycles']:.1f} cycles of dependent steps {chain['steps']} "
+          f"at {clock_hz / 1e6:.0f} MHz; the kernel takes "
+          f"{ms * 1e-3 * clock_hz / chain['longest']:.1f} cycles an expansion of that search "
+          f"({card})")
     return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["by"],
             "library_ms": None}  # no PyTorch call computes a linear sum assignment
@@ -341,11 +444,18 @@ def time_jv(name: str, kernel, plain, cost: torch.Tensor, card: str, plain_iters
 # ------------------------------------------------------ K4: flash attention
 
 
-def attention_inputs(rng, b, h, sq, sk, d, dtype, dev, bias_kind: str, projected: bool = False):
+def attention_inputs(rng, b, h, sq, sk, d, dtype, dev, bias_kind: str, projected: bool = False,
+                     shifted: bool = False):
     """Seeded q, k, v and a bias.  ``projected`` lays q, k, v out as the
-    model's projections do: [B, S, H, D] in memory, seen as [B, H, S, D]."""
+    model's projections do: [B, S, H, D] in memory, seen as [B, H, S, D].
+    ``shifted`` cuts them out of wider rows 4 elements in, so that bf16 data
+    starts on an 8- but not a 16-byte boundary."""
     def draw(s):
         x = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)).to(dev, dtype)
+        if shifted:
+            wide = torch.zeros(b, s, h * d + 8, dtype=dtype, device=dev)
+            wide[..., 4:4 + h * d] = x.reshape(b, s, h * d)
+            return wide[..., 4:4 + h * d].unflatten(-1, (h, d)).transpose(1, 2)
         return x.transpose(1, 2) if projected else x.transpose(1, 2).contiguous()
 
     q, k, v = draw(sq), draw(sk), draw(sk)
@@ -360,17 +470,26 @@ def attention_inputs(rng, b, h, sq, sk, d, dtype, dev, bias_kind: str, projected
     return q, k, v, bias
 
 
-def k4_against_plain(q, k, v, bias, label: str) -> float:
+def k4_against_plain(q, k, v, bias, label: str, variant: str | None = None,
+                     split: bool | None = None) -> float:
     """K4 against its plain blockwise version on the same tensors; returns
     max |difference|.  f32 inputs: 1e-5 (both keep f32 state and differ in the
     order of the sums only).  bf16 inputs: both round an f32 result to bf16
     once, so they differ by one bf16 rounding at most, 1e-2 relative.  Against
     the non-flash path, which rounds the probabilities to bf16 before the
-    second product: bf16-level, 3e-2."""
-    before = flash_attention.flash_attention.launches
+    second product: bf16-level, 3e-2.  ``variant`` ("tensor" or "f32") and
+    ``split`` say which kernel must have counted the launch, and whether it
+    must have split the keys."""
+    before = launch_counts()
     got = flash_attention.flash_attention(q, k, v, bias)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention.launches == before + 1
+    after = launch_counts()
+    took = {key: after[key] - before[key] for key in after if key.startswith("K4")}
+    assert took["K4"] == 1 and took["K4 tensor"] + took["K4 f32"] == 1, (label, took)
+    if variant is not None:
+        assert took[f"K4 {variant}"] == 1, f"K4 at {label} should take the {variant} variant: {took}"
+    if split is not None:
+        assert took["K4 split"] == int(split), f"K4 at {label}: split {took}, wanted {split}"
     assert got.shape == q.shape and got.dtype == q.dtype and torch.isfinite(got).all().item()
     plain = flash_attention.flash_attention_plain(q, k, v, bias)
     tol = 1e-5 if q.dtype == torch.float32 else 1e-2
@@ -401,12 +520,23 @@ def k4_bound(q, k, bias) -> dict:
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms}
 
 
-def time_k4(rng, sq: int, sk: int, dev, card: str) -> dict:
+def time_k4(rng, sq: int, sk: int, dev, card: str, clock_hz: float) -> dict:
     """K4, its plain version and the library call at one of the long clip's
     shapes, on bf16 tensors laid out as the model's projections lay them."""
     q, k, v, bias = attention_inputs(rng, LONG_BATCH, 8, sq, sk, 32, torch.bfloat16, dev,
                                      "padding", projected=True)
+    before = launch_counts()
     ms = device_ms(lambda: flash_attention.flash_attention(q, k, v, bias))
+    after = launch_counts()
+    assert after["K4 tensor"] - before["K4 tensor"] == after["K4"] - before["K4"] > 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = flash_attention.rows_per_block(sq)
+    splits = flash_attention.key_splits(LONG_BATCH * 8 * -(-sq // rows), sk, sms)
+    exp_ms = q.shape[0] * q.shape[1] * sq * sk / (EXP_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
+    print(f"K4 q [{LONG_BATCH},8,{sq},32]: tensor-core variant, {rows} rows a block, "
+          f"{splits[0]} key range(s) of {splits[1]}; its {q.shape[0] * q.shape[1] * sq * sk} "
+          f"exponentials alone take {exp_ms:.5f} ms at {EXP_PER_CLOCK_PER_SM} a clock on each "
+          f"of {sms} SMs at {clock_hz / 1e6:.0f} MHz (assumed rate) ({card})")
     eager_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v, bias), 50)
     plain_ms = cuda_ms(lambda: flash_attention.flash_attention_plain(q, k, v, bias), 5, warmup=1)
     mask = bias.to(q.dtype)
@@ -441,6 +571,16 @@ def check_kernels(dev: torch.device) -> dict:
             errs["K2"], errs["K3"] = max(errs["K2"], e2), max(errs["K3"], e3)
             print(f"K2 and K3 parity {list(shape)} {kind}: ok, max |cost - optimum| "
                   f"{e2:.3g} and {e3:.3g}")
+    # K2's two variants at their edges: the warp variant with 2, 4 and 8 columns
+    # a lane up to nc + 1 = 256, the block variant from 257
+    for variant, shapes in (("warp", K2_WARP_SHAPES), ("block", K2_BLOCK_SHAPES)):
+        for shape in shapes:
+            assert hungarian.block_variant(*shape[1:]) == variant, shape
+            for kind in K1_COST_KINDS:
+                e2 = k2_against_references(k1_costs(rng, shape, kind), dev, f"{shape} {kind}")
+                errs["K2"] = max(errs["K2"], e2)
+            print(f"K2 parity {list(shape)} ({variant} variant, nc + 1 = {shape[2] + 1}): ok "
+                  f"on {', '.join(K1_COST_KINDS)} costs")
     # K4: (B, H, Sq, Sk, D); the long clip's encoder and cross shapes, a ragged
     # tiny one, and the two wide head dims
     shapes = [(LONG_BATCH, 8, 752, 752, 32), (LONG_BATCH, 8, 41, 752, 32), (2, 4, 40, 528, 16),
@@ -451,14 +591,51 @@ def check_kernels(dev: torch.device) -> dict:
                 q, k, v, bias = attention_inputs(rng, b, h, sq, sk, d, dtype, dev, bias_kind,
                                                  projected=bias_kind == "padding")
                 name = str(dtype).split(".")[1]
-                err = k4_against_plain(q, k, v, bias, f"{shapes[i]} {name} {bias_kind}")
+                variant = "tensor" if dtype == torch.bfloat16 and d != 16 else "f32"
+                err = k4_against_plain(q, k, v, bias, f"{shapes[i]} {name} {bias_kind}", variant)
                 errs[f"K4 {name}"] = max(errs[f"K4 {name}"], err)
                 if i < 2 and dtype == torch.bfloat16:
                     errs[f"K4 {sq}"] = max(errs[f"K4 {sq}"], err)
                 print(f"K4 parity q[{b},{h},{sq},{d}] k[{b},{h},{sk},{d}] {name} bias "
                       f"{bias_kind}: ok, max |kernel - plain| {err:.3g}")
+    # the tensor-core variant at its edges: one query row, a whole warp, one
+    # row more, the cross side at D 128; fewer keys than a tile, ragged key
+    # sides; few enough blocks that the keys are split (clip 0 of a padding
+    # bias has every key padded, so all its ranges are masked, and the other
+    # clips' padded tails mask whole ranges)
+    edges = [(2, 2, 1, 752, 32, True), (2, 2, 16, 40, 32, False), (2, 2, 17, 100, 64, True),
+             (1, 2, 41, 200, 128, True), (2, 4, 41, 130, 64, True), (3, 2, 16, 65, 32, True)]
+    for b, h, sq, sk, d, split in edges:
+        for bias_kind in ("padding", "full", "none"):
+            q, k, v, bias = attention_inputs(rng, b, h, sq, sk, d, torch.bfloat16, dev, bias_kind,
+                                             projected=bias_kind == "padding")
+            err = k4_against_plain(q, k, v, bias, f"{(b, h, sq, sk, d)} bf16 {bias_kind}",
+                                   "tensor", split)
+            errs["K4 bfloat16"] = max(errs["K4 bfloat16"], err)
+        print(f"K4 parity q[{b},{h},{sq},{d}] k[{b},{h},{sk},{d}] bf16, tensor-core variant, "
+              f"keys {'split' if split else 'in one range'}: ok with every bias kind")
+    assert k4_split_of_main_shapes(dev) == {752: False, 41: True}
+    # bf16 on an 8- but not 16-byte boundary: the f32-core variant takes it, and says so
+    for bias_kind in ("padding", "none"):
+        q, k, v, bias = attention_inputs(rng, 2, 4, 41, 200, 32, torch.bfloat16, dev, bias_kind,
+                                         shifted=True)
+        assert q.data_ptr() % 16 == 8 and k.data_ptr() % 16 == 8 and v.data_ptr() % 16 == 8
+        err = k4_against_plain(q, k, v, bias, f"shifted bf16 {bias_kind}", "f32", False)
+        errs["K4 bfloat16"] = max(errs["K4 bfloat16"], err)
+    print("K4 parity bf16 input 8 bytes off a 16-byte boundary: ok, took the f32-core variant")
     torch.cuda.synchronize()
     return errs
+
+
+def k4_split_of_main_shapes(dev) -> dict:
+    """Whether the wrapper splits the keys at the long clip's two shapes on
+    this card: {query rows: split or not}."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for sq in (752, 41):
+        blocks = LONG_BATCH * 8 * -(-sq // flash_attention.rows_per_block(sq))
+        out[sq] = flash_attention.key_splits(blocks, 752, sms)[0] > 1
+    return out
 
 
 # ------------------------------------------------------------ evaluation
@@ -633,6 +810,10 @@ def run_long_predict(cfg: SEDTConfig, model, dev: torch.device, card: str) -> di
     attention.flash_attention = real
     per_forward = m.enc_layers + m.dec_layers
     assert counts["K4"] == per_forward * LONG_FORWARDS == sum(seen.values()), (counts, seen)
+    assert counts["K4 tensor"] == counts["K4"] and counts["K4 f32"] == 0, (
+        f"a long forward's K4 launches must all be the tensor-core variant: {counts}")
+    assert counts["K4 split"] == m.dec_layers * LONG_FORWARDS, (
+        f"the cross-attention launches, and only they, split the keys: {counts}")
     tokens = -(-m.max_frames // 16) * (m.n_mels // 16)
     assert seen == {(tokens, tokens): m.enc_layers * LONG_FORWARDS,
                     (m.num_queries + 1, tokens): m.dec_layers * LONG_FORWARDS}, seen
@@ -643,7 +824,9 @@ def run_long_predict(cfg: SEDTConfig, model, dev: torch.device, card: str) -> di
         assert all(0.0 <= on <= off <= fc.max_len_seconds + 1e-3 for _, on, off, _ in rows)
     print(f"long predict: {batch_s * 1e3:.3f} ms/batch with the host decode, "
           f"{LONG_BATCH * fc.max_len_seconds / batch_s:.1f} s of audio per second, K4 "
-          f"{counts['K4']} launches in {LONG_FORWARDS} forwards, {n_events} events decoded at "
+          f"{counts['K4']} launches in {LONG_FORWARDS} forwards (tensor-core variant "
+          f"{counts['K4 tensor']}, of which {counts['K4 split']} split the keys; f32-core "
+          f"variant {counts['K4 f32']}), {n_events} events decoded at "
           f"threshold 0 over {len(events)} clips (random weights) ({card})")
 
     # the split of one batch, on the device clock
@@ -753,6 +936,11 @@ def main() -> None:
     print(f"card: {card}")
     for name, seconds in build_kernels().items():
         print(f"kernel build {name}: {seconds:.2f} s ({card})")
+    clock_hz = sm_clock_hz()
+    latency = latency_probe(dev)
+    print(f"dependent-step latencies timed by one warp on the card, in cycles: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in latency.items())
+          + f"; highest SM clock {clock_hz / 1e6:.0f} MHz ({card})")
 
     # 2. every kernel against its plain version (and scipy, and the non-flash path)
     errs = check_kernels(dev)
@@ -802,7 +990,8 @@ def main() -> None:
     assert launches["K1"] == STEPS, f"K1 launched {launches['K1']} times in {STEPS} steps"
     print(f"eval step: {step_s * 1e3:.3f} ms/batch, {batch / step_s:.1f} clips/s, "
           f"{STEPS} steps, batch {batch} ({card})")
-    timing = {"K1": time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5)}
+    timing = {"K1": time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5,
+                            latency, clock_hz)}
     shapes = {"K1": list(cost.shape)}
     split_eval_step(model, cfg, batches[0], valid, card)
     profile(lambda: step(batches[0], valid), 3, "eval step", card, "eval_step_profile.txt")
@@ -850,33 +1039,44 @@ def main() -> None:
     check_eval_result(res, wd, long_cfg, LONG_BATCH)
     per_forward = lm.enc_layers + lm.dec_layers
     assert counts["K2"] == LONG_STEPS and counts["K1"] == 0, counts
+    assert counts["K2 warp"] == counts["K2"] and counts["K2 block"] == 0, (
+        f"the long step's K2 launch must be the warp variant: {counts}")
     assert counts["K4"] == per_forward * LONG_STEPS, counts
+    assert counts["K4 tensor"] == counts["K4"] and counts["K4 f32"] == 0, (
+        f"the long step's K4 launches must all be the tensor-core variant: {counts}")
     launches["K2"] = counts["K2"]
-    print(f"long eval step: {step_s * 1e3:.3f} ms/batch, K2 {counts['K2']} and K4 {counts['K4']} "
-          f"launches in {LONG_STEPS} steps, batch {LONG_BATCH} ({card})")
+    print(f"long eval step: {step_s * 1e3:.3f} ms/batch, K2 {counts['K2']} (warp variant "
+          f"{counts['K2 warp']}) and K4 {counts['K4']} (tensor-core variant "
+          f"{counts['K4 tensor']}, {counts['K4 split']} with the keys split) launches in "
+          f"{LONG_STEPS} steps, batch {LONG_BATCH} ({card})")
 
     # 7. kernel times at the long path's shapes
-    timing["K2"] = time_jv("K2", hungarian.lsap_block, hungarian.lsap_plain, cost, card, 3)
+    timing["K2"] = time_jv("K2", hungarian.lsap_block, hungarian.lsap_plain, cost, card, 3,
+                           latency, clock_hz)
     timing["K3"] = time_jv("K3", hungarian.lsap_square, hungarian.lsap_square_plain, square,
-                           card, 1, plain_warmup=0)  # the plain version takes seconds
+                           card, 1, latency, clock_hz, plain_warmup=0)  # plain takes seconds
     shapes["K2"], shapes["K3"] = list(cost.shape), list(square.shape)
     rng = np.random.RandomState(SEED + 1)
     tokens = -(-lm.max_frames // 16) * (lm.n_mels // 16)
     k4_shapes = {"encoder": (tokens, tokens), "cross": (lm.num_queries + 1, tokens)}
     for name, (sq, sk) in k4_shapes.items():
-        timing[f"K4 {name}"] = time_k4(rng, sq, sk, dev, card)
+        timing[f"K4 {name}"] = time_k4(rng, sq, sk, dev, card, clock_hz)
 
     hungarian_src = SOURCE_DIR + "hungarian_jv.cu"
     kernels = [
         {"name": "K1 jv_lane", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:302",
          "tpu_kernel": "_jv_lane_kernel", "shape": shapes["K1"], "launches": launches["K1"],
-         "max_abs_err": errs["K1"], **timing["K1"]},
-        {"name": "K2 jv_block", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:197",
+         "variant": "lane", "max_abs_err": errs["K1"], **timing["K1"]},
+        {"name": "K2 jv_warp", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:197",
          "tpu_kernel": "_jv_packed_kernel", "shape": shapes["K2"], "launches": launches["K2"],
-         "max_abs_err": errs["K2"], **timing["K2"]},
+         "variant": hungarian.block_variant(*shapes["K2"][1:]), "max_abs_err": errs["K2"],
+         **timing["K2"]},
+        # K3 is on neither main path (no module of either package dispatches to
+        # it): its one launch is its own entry point, lsap_square, called above
         {"name": "K3 jv_square", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:120",
          "tpu_kernel": "_jv_kernel", "shape": shapes["K3"], "launches": launches["K3"],
-         "max_abs_err": errs["K3"], **timing["K3"]},
+         "variant": "square", "on_a_main_path": False, "max_abs_err": errs["K3"],
+         **timing["K3"]},
     ]
     for name, (sq, sk) in k4_shapes.items():
         kernels.append(
@@ -884,7 +1084,9 @@ def main() -> None:
              "replaces": PALLAS_DIR + "flash_attention.py:35", "tpu_kernel": "_flash_kernel",
              "shape": {"q": [LONG_BATCH, 8, sq, 32], "kv": [LONG_BATCH, 8, sk, 32],
                        "dtype": "bfloat16"},
-             "launches": k4_launches[sq], "max_abs_err": errs[f"K4 {sq}"],
+             "launches": k4_launches[sq],
+             "variant": "tensor, keys split" if name == "cross" else "tensor",
+             "max_abs_err": errs[f"K4 {sq}"],
              "max_abs_err_f32": errs["K4 float32"], **timing[f"K4 {name}"]})
     for kernel in kernels:
         kernel.update(route="cuda", parity="ok")

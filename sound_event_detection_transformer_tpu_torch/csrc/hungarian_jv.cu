@@ -1,15 +1,16 @@
 // Batched linear sum assignment by Jonker-Volgenant shortest augmenting
-// paths: three kernels for the three TPU kernels of
+// paths: four kernels for the three TPU kernels of
 // sound_event_detection_transformer_tpu/ops/pallas/hungarian.py.
 //
 //   jv_lane_kernel    one warp per problem, nc + 1 <= 32   (`_jv_lane_kernel`)
+//   jv_warp_kernel    one warp per problem, nc + 1 <= 256  (`_jv_packed_kernel`)
 //   jv_block_kernel   one block per problem, any width     (`_jv_packed_kernel`)
 //   jv_square_kernel  one warp per square problem, columns strided over the
 //                     lanes, any n                         (`_jv_kernel`)
 //
-// The first two compute the same function: cost f32 [B, nr, nc] with
+// The first three compute the same function: cost f32 [B, nr, nc] with
 // nr <= nc -> row-for-column int32 [B, nc], -1 on the nc - nr columns left
-// free.  Only the nr real rows are inserted.  The third takes cost
+// free.  Only the nr real rows are inserted.  The fourth takes cost
 // [B, n, n] and returns [B, n].
 //
 // ---- jv_lane_kernel -------------------------------------------------------
@@ -37,7 +38,9 @@
 // and a free column always remains because nr <= nc.  A live column's bid
 // is clamped to INF, below the +inf of the others, whatever the costs hold.
 // A NaN or infinite cost gives a wrong assignment, never a warp that spins.
-// All three kernels keep this rule.
+// All four kernels keep this rule.
+#include <climits>
+
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -121,16 +124,183 @@ __global__ void jv_lane_kernel(const float* __restrict__ cost,
   if (in_range) out[static_cast<long long>(b) * nc + (lane - 1)] = p - 1;
 }
 
-// ---- jv_block_kernel ------------------------------------------------------
+// ---- jv_warp_kernel --------------------------------------------------------
 // Replaces `_jv_packed_kernel` (launched by `_sublane_packed`: the dispatch
-// of `pallas_hungarian_packed` when nc + 1 > 32, or when forced).
+// of `pallas_hungarian_packed` when nc + 1 > 32, or when forced) for
+// nc + 1 <= 256 and a cost block of at most 64 KB.
 //
 // What bounds it: at the long-clip evaluation step's shape [24, 40, 60] it
-// moves 236 KB and does a few megaflops; like the lane kernel its time is
-// the chain of dependent expansions, up to 1 + 2 + ... + nr = 820 a problem,
-// and each now crosses warps.
+// moves 236 KB and does a few megaflops; its time is the chain of dependent
+// expansions, up to 1 + 2 + ... + nr = 820 a problem, so what counts is the
+// number of dependent instructions in one expansion, not bytes or operations.
 //
-// What the design does about that: one block per problem, thread j holding
+// What the design does about that: one warp per problem and no block
+// barrier anywhere.  Lane l owns columns l, l + 32, ... (C a lane, a template
+// parameter, every loop over them unrolled so that v, minv, way, the column's
+// row and the `used` bits stay in registers).  The chain of one expansion is:
+//   read u[i0] and the cost row's entries from shared memory (in parallel),
+//   two subtractions, a compare-select, the lane's own fold over its C
+//   columns (ascending, so the lowest index wins), then two integer warp
+//   reductions (`redux.sync` through __reduce_min_sync): the first over an
+//   order-preserving unsigned image of the f32 bid, the second, among the
+//   lanes that hold that minimum, over (column << 8 | row assigned to it).
+// The second reduction hands every lane the next column and its row at once,
+// so the read of p[j0] that used to open each expansion is gone, and so are
+// the ten shuffles and five compare-selects of the butterfly.  Row potentials
+// of rows in the tree ride in the registers of the lane that owns the row's
+// column and are written back once per inserted row: each is read once, when
+// its row enters the tree, so the search writes no shared memory at all.
+// The augmenting walk is serial pointer chasing over shared memory, lane 0's.
+// The arithmetic (f32, the order of the subtractions, INF = 1e18, lowest
+// index on ties, -0 bidding as +0) is that of the other kernels, so the
+// answers are the same index for index.  The cost block arrives by cp.async.
+//
+// An unsigned image of an f32 bid whose order is the bids' order: the sign
+// bit of a non-negative is set, a negative is complemented; -0 maps as +0.
+// Bids are clamped before they get here, so no NaN does.
+__device__ inline unsigned ordered_key(float x) {
+  unsigned bits = __float_as_uint(x);
+  if (bits == 0x80000000u) bits = 0u;
+  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+__device__ inline float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+__device__ inline void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+template <int C>
+__global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__ out,
+                               int batch, int nr, int nc) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;  // warp-uniform: the whole warp leaves
+
+  const int per_problem = nr * nc + (nr + 1) + 2 * (nc + 1);
+  float* a = smem + warp * per_problem;               // [nr * nc]
+  float* u_s = a + nr * nc;                           // [nr + 1] row potentials
+  int* p_s = reinterpret_cast<int*>(u_s + (nr + 1));  // [nc + 1] col -> row
+  int* way_s = p_s + (nc + 1);                        // [nc + 1], for the walk
+
+  const float* src = cost + static_cast<long long>(b) * nr * nc;
+  for (int k = lane; k < nr * nc; k += 32) copy_async4(a + k, src + k);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int k = lane; k <= nr; k += 32) u_s[k] = 0.0f;
+  for (int k = lane; k <= nc; k += 32) p_s[k] = 0;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+
+  float v[C];     // potentials of columns lane, lane + 32, ...
+  int pc[C];      // rows (1-indexed) assigned to them; 0 = free
+  bool real[C];   // a column of the problem: not the root, not past nc
+  int offset[C];  // where the column sits in a cost row (0 for the others: a legal read)
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int col = lane + 32 * c;
+    v[c] = 0.0f;
+    pc[c] = 0;
+    real[c] = col >= 1 && col <= nc;
+    offset[c] = real[c] ? col - 1 : 0;
+  }
+
+  for (int i = 1; i <= nr; ++i) {
+    float minv[C];
+    int way[C];
+    float uval[C];  // potential of the row this column brought into the tree
+    int urow[C];    // that row
+    bool used[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      minv[c] = kInf;
+      way[c] = 0;
+      uval[c] = 0.0f;
+      urow[c] = 0;
+      used[c] = false;
+    }
+    if (lane == 0) p_s[0] = i;  // the virtual root holds the row being inserted
+    int j0 = 0;
+    int i0 = i;
+    // Dijkstra: grow the alternating tree until it reaches a free column.
+    // j0 and i0 come out of warp reductions, so every lane loops alike; the
+    // body is selects only, so the lanes never part ways inside it either.
+    do {
+      const float u_i0 = u_s[i0];
+      const float* row = a + (i0 - 1) * nc;
+      float bm = CUDART_INF_F;  // this lane's best live bid ...
+      unsigned bc = UINT_MAX;   // ... as column << 8 | its row
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int col = lane + 32 * c;
+        const bool enters = col == j0;
+        used[c] = used[c] || enters;
+        urow[c] = enters ? i0 : urow[c];
+        uval[c] = enters ? u_i0 : uval[c];
+        const bool live = real[c] && !used[c];
+        const float cur = row[offset[c]] - u_i0 - v[c];
+        const bool better = live && cur < minv[c];
+        minv[c] = better ? cur : minv[c];
+        way[c] = better ? j0 : way[c];
+        // a live bid is clamped below the +inf of the dead columns
+        const float bid = live ? fminf(minv[c], kInf) : CUDART_INF_F;
+        const bool wins = bid < bm;  // ascending columns: the lowest index wins a tie
+        bm = wins ? bid : bm;
+        bc = wins ? static_cast<unsigned>(col << 8 | pc[c]) : bc;
+      }
+      const unsigned key = ordered_key(bm);
+      const unsigned key_min = __reduce_min_sync(kFull, key);
+      const unsigned best = __reduce_min_sync(kFull, key == key_min ? bc : UINT_MAX);
+      const float delta = key_value(key_min);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        v[c] -= used[c] ? delta : 0.0f;
+        uval[c] += used[c] ? delta : 0.0f;
+        minv[c] -= used[c] ? 0.0f : delta;
+      }
+      j0 = static_cast<int>(best >> 8);
+      i0 = static_cast<int>(best & 255u);
+    } while (i0 != 0);
+    // Augment: walk the path back to the root, shifting assignments.
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = lane + 32 * c;
+      if (col <= nc) way_s[col] = way[c];
+      if (used[c]) u_s[urow[c]] = uval[c];
+    }
+    __syncwarp();
+    if (lane == 0) {
+      do {
+        const int j1 = way_s[j0];
+        p_s[j0] = p_s[j1];
+        j0 = j1;
+      } while (j0 != 0);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = lane + 32 * c;
+      if (col <= nc) pc[c] = p_s[col];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int col = lane + 32 * c;
+    if (col >= 1 && col <= nc) out[static_cast<long long>(b) * nc + (col - 1)] = pc[c] - 1;
+  }
+}
+
+// ---- jv_block_kernel ------------------------------------------------------
+// The same function for what the warp kernel does not take: more than 255
+// columns, or a cost block over 64 KB.
+//
+// What the design does: one block per problem, thread j holding
 // column j (thread 0 the virtual root), so any width up to 1023 columns runs
 // with the column state (v, minv, used, way) in registers.  What other
 // threads must read lives in shared memory: the cost block, the assignment
@@ -343,10 +513,54 @@ __global__ void jv_square_kernel(const float* __restrict__ cost,
   }
 }
 
+constexpr int kMaxSharedBytes = 232448;  // what one block may take on sm_90
+constexpr int kMaxWarpsPerBlock = 4;     // problems per block of jv_warp_kernel
+int g_sm_count = 132;                    // read by sedt_jv_init
+
+size_t warp_problem_bytes(int nr, int nc) {
+  return sizeof(float) * (static_cast<size_t>(nr) * nc + (nr + 1) + 2 * (nc + 1));
+}
+
+template <int C>
+int launch_warp(const float* cost, int* out, int batch, int nr, int nc,
+                cudaStream_t stream) {
+  const size_t per_problem = warp_problem_bytes(nr, nc);
+  // a problem's time is its own chain, so spread the problems over the SMs
+  // first and share a block only when there are more problems than SMs
+  int warps = (batch + g_sm_count - 1) / g_sm_count;
+  warps = warps < 1 ? 1 : (warps > kMaxWarpsPerBlock ? kMaxWarpsPerBlock : warps);
+  while (warps > 1 && warps * per_problem > kMaxSharedBytes) --warps;
+  if (per_problem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (batch + warps - 1) / warps;
+  jv_warp_kernel<C><<<blocks, 32 * warps, warps * per_problem, stream>>>(cost, out, batch,
+                                                                        nr, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// Raises the dynamic shared-memory limit of the kernels that may need more
+// than 48 KB and reads the SM count, on the current device.  Called once per
+// device when the library is loaded, so that a launch is pointer arithmetic
+// and the launch itself (and can be captured into a CUDA graph).  Returns the
+// first error as an int.
+extern "C" int sedt_jv_init() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, device);
+  }
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<2>, attr, kMaxSharedBytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<4>, attr, kMaxSharedBytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<8>, attr, kMaxSharedBytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_block_kernel, attr, kMaxSharedBytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_square_kernel, attr, kMaxSharedBytes);
+  return static_cast<int>(err);
+}
+
 // Each launcher runs its kernel on `stream` and returns cudaGetLastError()
-// (or the error of raising the shared-memory limit) as an int.
+// as an int (cudaErrorInvalidValue for a shape its kernel does not take).
 //
 // cost: device f32 [batch, nr, nc], contiguous; out: device int32 [batch, nc].
 // The caller guarantees 0 <= nr <= nc <= 31.
@@ -361,6 +575,19 @@ extern "C" int sedt_jv_lane(const float* cost, int* out, int batch, int nr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Same arguments; the caller guarantees 0 <= nr <= nc <= 255.  One problem's
+// cost block and state (4 (nr nc + nr + 2 nc + 3) bytes) must fit a block's
+// shared memory; the wrapper sends only those of at most 64 KB here.
+extern "C" int sedt_jv_warp(const float* cost, int* out, int batch, int nr,
+                            int nc, void* stream) {
+  if (batch <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nc + 1 <= 64) return launch_warp<2>(cost, out, batch, nr, nc, s);
+  if (nc + 1 <= 128) return launch_warp<4>(cost, out, batch, nr, nc, s);
+  if (nc + 1 <= 256) return launch_warp<8>(cost, out, batch, nr, nc, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Same arguments; the caller guarantees 0 <= nr <= nc <= 1023.  The cost
 // block of one problem must fit the 227 KB of shared memory a block can have.
 extern "C" int sedt_jv_block(const float* cost, int* out, int batch, int nr,
@@ -369,12 +596,7 @@ extern "C" int sedt_jv_block(const float* cost, int* out, int batch, int nr,
   const int threads = ((nc + 1 + 31) / 32) * 32;
   const size_t smem = sizeof(float) * (static_cast<size_t>(nr) * nc + (nr + 1) + 32) +
                       sizeof(int) * (32 + 2 * (nc + 1));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        jv_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   jv_block_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       cost, out, nr, nc);
   return static_cast<int>(cudaGetLastError());
@@ -385,12 +607,7 @@ extern "C" int sedt_jv_square(const float* cost, int* out, int batch, int n,
                               void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const size_t smem = 6 * sizeof(float) * (n + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        jv_square_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   jv_square_kernel<<<batch, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       cost, out, n);
   return static_cast<int>(cudaGetLastError());

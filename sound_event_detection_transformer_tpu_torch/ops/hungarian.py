@@ -4,15 +4,20 @@
 exactly and returns row-for-column ``[B, nc]`` int32, with -1 on the nc - nr
 columns left free.  It is the counterpart of the JAX package's
 ``pallas_hungarian_packed`` and dispatches as that does: the warp-per-problem
-kernel K1 (``_jv_lane_kernel``) when nc + 1 <= 32, the block-per-problem
-kernel K2 (``_jv_packed_kernel``) for wider problems or when ``force_block``
-is set.  ``lsap_square(cost [B, n, n])`` is the counterpart of
-``pallas_hungarian``: kernel K3 (``_jv_kernel``), one warp per square problem
-with the reference formulation's data-dependent loops.
+kernel K1 (``_jv_lane_kernel``) when nc + 1 <= 32, kernel K2
+(``_jv_packed_kernel``) for wider problems or when ``force_block`` is set.
+K2 has two variants, chosen by :func:`block_variant` from ``(nr, nc)`` alone:
+``"warp"``, one warp per problem with several columns a lane and no block
+barrier (nc + 1 <= 256 and a cost block of at most 64 KB), and ``"block"``,
+one block per problem, beyond.  ``lsap_square(cost [B, n, n])`` is the
+counterpart of ``pallas_hungarian``: kernel K3 (``_jv_kernel``), one warp per
+square problem with the reference formulation's data-dependent loops.
 
 * On a CUDA tensor each wrapper launches its hand-written kernel of
   ``csrc/hungarian_jv.cu`` (built with nvcc for sm_90a on first use, loaded
-  with ctypes) or raises, and counts the launch in its ``launches``.
+  with ctypes) or raises, and counts the launch in its ``launches``;
+  ``lsap_block`` also counts each variant, in ``launches_warp`` and
+  ``launches_block``.
 * On a CPU tensor it runs the kernel's plain PyTorch version:
   :func:`lsap_plain` for K1 and K2, :func:`lsap_square_plain` for K3.
 """
@@ -21,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ._build import load_library
@@ -28,6 +34,8 @@ from ._build import load_library
 INF = 1.0e18
 LSEG = 32  # one warp: the virtual root plus at most 31 columns
 MAX_BLOCK = 1024  # one block: the virtual root plus at most 1023 columns
+MAX_WARP = 256  # K2's warp variant: 32 lanes of at most 8 columns
+WARP_SHARED_BYTES = 64 * 1024  # and at most this much cost and state a problem
 
 
 @functools.cache
@@ -35,12 +43,26 @@ def _library() -> ctypes.CDLL:
     lib = load_library("hungarian_jv")
     rect = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
-    for fn in (lib.sedt_jv_lane, lib.sedt_jv_block):
+    for fn in (lib.sedt_jv_lane, lib.sedt_jv_warp, lib.sedt_jv_block):
         fn.argtypes = rect
         fn.restype = ctypes.c_int
     lib.sedt_jv_square.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p]
     lib.sedt_jv_square.restype = ctypes.c_int
+    lib.sedt_jv_init.argtypes = []
+    lib.sedt_jv_init.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _device(index: int) -> ctypes.CDLL:
+    """The library made ready on device ``index``: shared-memory limits are
+    raised and the SM count is read once, not per launch."""
+    lib = _library()
+    with torch.cuda.device(index):
+        err = lib.sedt_jv_init()
+    if err != 0:
+        raise RuntimeError(f"sedt_jv_init failed: cudaError {err}")
     return lib
 
 
@@ -61,10 +83,11 @@ def _check_cost(cost: torch.Tensor) -> None:
 def _launch(wrapper, name: str, cost: torch.Tensor, *dims: int) -> torch.Tensor:
     """Run the C launcher ``name`` of a wrapper on ``cost`` and count it."""
     out = torch.empty((cost.shape[0], cost.shape[2]), dtype=torch.int32, device=cost.device)
-    with torch.cuda.device(cost.device):
+    index = cost.device.index if cost.device.index is not None else torch.cuda.current_device()
+    lib = _device(index)
+    with torch.cuda.device(index):
         stream = torch.cuda.current_stream(cost.device).cuda_stream
-        err = getattr(_library(), name)(cost.data_ptr(), out.data_ptr(), cost.shape[0],
-                                        *dims, stream)
+        err = getattr(lib, name)(cost.data_ptr(), out.data_ptr(), cost.shape[0], *dims, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1
@@ -82,6 +105,25 @@ def lsap_lane(cost: torch.Tensor) -> torch.Tensor:
     return _launch(lsap_lane, "sedt_jv_lane", cost, nr, nc)
 
 
+def block_variant(nr: int, nc: int) -> str:
+    """Which of K2's kernels takes an nr x nc problem: ``"warp"`` while the
+    virtual root and the columns fit 32 lanes of 8 and the problem's cost and
+    state fit ``WARP_SHARED_BYTES`` of shared memory, else ``"block"``."""
+    shared = 4 * (nr * nc + (nr + 1) + 2 * (nc + 1))
+    return "warp" if nc + 1 <= MAX_WARP and shared <= WARP_SHARED_BYTES else "block"
+
+
+def ordered_key(x) -> np.ndarray:
+    """The order-preserving uint32 image of f32 bids that K2's warp variant
+    hands to the integer warp minimum, mirrored from the kernel: the sign bit
+    of a non-negative is set, a negative is complemented, and -0 maps as +0,
+    so that ``a < b`` exactly when ``key(a) < key(b)`` for all non-NaN bids."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32).copy()
+    bits[bits == 0x80000000] = 0
+    negative = (bits & 0x80000000) != 0
+    return np.where(negative, ~bits, bits | np.uint32(0x80000000)).astype(np.uint32)
+
+
 def lsap_block(cost: torch.Tensor) -> torch.Tensor:
     """K2: cost f32 [B, nr, nc], nr <= nc <= 1023 -> [B, nc] int32."""
     _check_cost(cost)
@@ -91,7 +133,13 @@ def lsap_block(cost: torch.Tensor) -> torch.Tensor:
                          "a block")
     if not cost.is_cuda:
         return lsap_plain(cost)
-    return _launch(lsap_block, "sedt_jv_block", cost, nr, nc)
+    variant = block_variant(nr, nc)
+    out = _launch(lsap_block, f"sedt_jv_{variant}", cost, nr, nc)
+    if variant == "warp":
+        lsap_block.launches_warp += 1
+    else:
+        lsap_block.launches_block += 1
+    return out
 
 
 def lsap_square(cost: torch.Tensor) -> torch.Tensor:
@@ -106,7 +154,9 @@ def lsap_square(cost: torch.Tensor) -> torch.Tensor:
 
 
 lsap_lane.launches = 0
-lsap_block.launches = 0
+lsap_block.launches = 0  # both variants
+lsap_block.launches_warp = 0
+lsap_block.launches_block = 0
 lsap_square.launches = 0
 
 

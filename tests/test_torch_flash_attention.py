@@ -160,3 +160,117 @@ def test_wrapper_rejects_bad_input():
         fa.flash_attention(q, k, k, torch.zeros(1, 1, 1, 6, dtype=torch.bfloat16))
     with pytest.raises(RuntimeError):
         fa.flash_attention(q, k, k, torch.zeros(1, 1, 1, 5))  # bias not broadcastable
+
+
+# ------------------------------------------------ the tensor-core variant's host side
+
+DENSE = (8 * 752 * 256, 32, 256, 1)  # [B, S, H, D] projections seen as [B, H, S, D], D 32
+
+
+@pytest.mark.parametrize("dtype,d,strides,offsets,want", [
+    (torch.bfloat16, 32, DENSE, (0, 0, 0), "tensor"),
+    (torch.bfloat16, 64, (4096, 64, 128, 1), (0, 0, 0), "tensor"),
+    (torch.bfloat16, 128, (8192, 128, 256, 1), (16, 32, 48), "tensor"),
+    (torch.bfloat16, 16, (4096, 16, 128, 1), (0, 0, 0), "f32"),  # D 16 stays on the f32 cores
+    (torch.float32, 32, DENSE, (0, 0, 0), "f32"),
+    (torch.float32, 128, (8192, 128, 256, 1), (0, 0, 0), "f32"),
+    (torch.bfloat16, 32, DENSE, (0, 8, 0), "f32"),  # k on an 8- but not 16-byte boundary
+    (torch.bfloat16, 32, (8 * 752 * 260, 32, 260, 1), (0, 0, 0), "f32"),  # row stride 4 mod 8
+    (torch.bfloat16, 32, DENSE, (0, 0, 4), None),  # 4 bytes: neither kernel
+    (torch.float32, 32, (1000, 32, 250, 1), (0, 0, 0), None),  # row stride 2 mod 4
+    (torch.bfloat16, 32, (4096, 32, 1, 128), (0, 0, 0), None),  # the last dim strided
+    (torch.bfloat16, 40, DENSE, (0, 0, 0), None),  # no such head dim
+])
+def test_kernel_variant_is_a_pure_function_of_type_dim_strides_and_address(
+        dtype, d, strides, offsets, want):
+    layouts = [(strides, 1 << 20 | off) for off in offsets]
+    if want is None:
+        with pytest.raises(ValueError):
+            fa.kernel_variant(dtype, d, layouts)
+    else:
+        assert fa.kernel_variant(dtype, d, layouts) == want
+
+
+def test_kernel_variant_of_real_tensors():
+    """The projections' layout takes the tensor-core kernel; a view that
+    starts 4 elements in is 8- but not 16-byte aligned and takes the other."""
+    x = torch.zeros(2, 40, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    lay = lambda t: (t.stride(), t.data_ptr())
+    assert fa.kernel_variant(x.dtype, 32, [lay(x[..., :32])] * 3) == "tensor"
+    assert fa.kernel_variant(x.dtype, 32, [lay(x[..., 4:36])] * 3) == "f32"
+    assert fa.kernel_variant(torch.float32, 32, [lay(x.float()[..., :32])] * 3) == "f32"
+
+
+@pytest.mark.parametrize("blocks,sk,sms,want", [
+    (8 * 8 * 6, 752, 132, (1, 768)),  # the long clip's encoder shape: the grid is full
+    (8 * 8 * 1, 752, 132, (4, 192)),  # its cross shape: four ranges of three tiles
+    (132, 752, 132, (1, 768)),  # one block an SM is full
+    (131, 752, 132, (3, 256)),
+    (8, 752, 132, (12, 64)),  # never more ranges than tiles
+    (8, 64, 132, (1, 64)),  # one tile cannot be split
+    (8, 40, 132, (1, 64)),
+    (1, 65, 132, (2, 64)),  # a ragged second range of one key
+    (64, 752, 64, (1, 768)),
+    (16, 1000, 108, (8, 128)),
+])
+def test_key_splits(blocks, sk, sms, want):
+    n, per = fa.key_splits(blocks, sk, sms)
+    assert (n, per) == want
+    assert per % fa.TILE_K == 0 and (n - 1) * per < sk <= n * per  # every range holds a key
+
+
+def test_rows_per_block():
+    assert [fa.rows_per_block(s) for s in (1, 41, 64, 65, 752)] == [64, 64, 64, 128, 128]
+
+
+@pytest.mark.parametrize("bias_kind,keys_per_split", [("padding", 128), ("full", 64),
+                                                      ("none", 192), ("masked_range", 128)])
+def test_split_merge_matches_plain_and_pallas(bias_kind, keys_per_split):
+    """The key split's arithmetic (per-range partials merged by the
+    online-softmax rule) against the unsplit plain version and the Pallas
+    kernel in interpret mode, 1e-5; ``masked_range`` pads every key of the
+    second range (and, for clip 0, every key there is)."""
+    sk = S + 40
+    q, k, v, bias = _inputs(7, 2, 2, 41, sk, 32, "none" if bias_kind == "masked_range" else bias_kind)
+    if bias_kind == "masked_range":
+        pad = np.zeros((2, sk), bool)
+        pad[0] = True
+        pad[1, keys_per_split:2 * keys_per_split] = True
+        bias = make_key_padding_bias(torch.from_numpy(pad)).numpy()
+    got = fa.flash_attention_split_plain(_t(q), _t(k), _t(v), _t(bias), keys_per_split)
+    assert torch.isfinite(got).all()
+    plain = fa.flash_attention_plain(_t(q), _t(k), _t(v), _t(bias))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5, atol=1e-5)
+    want = np.asarray(jflash_attention(_j(q), _j(k), _j(v), _j(bias), interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if bias_kind == "masked_range":  # the all-padded clip is the uniform average
+        np.testing.assert_allclose(got[0].numpy(), np.broadcast_to(
+            v[0].mean(1, keepdims=True), got[0].shape), rtol=1e-5, atol=1e-5)
+
+
+def test_merge_weighs_a_masked_range_as_nothing():
+    m = [torch.tensor([[0.5]]), torch.tensor([[-1.0e9]])]
+    parts = [(m[0], torch.tensor([[2.0]]), torch.tensor([[4.0, 6.0]])),
+             (m[1], torch.tensor([[128.0]]), torch.tensor([[1.0e3, -1.0e3]]))]
+    torch.testing.assert_close(fa.merge_partials(parts), torch.tensor([[2.0, 3.0]]))
+    both_masked = [(m[1], torch.tensor([[2.0]]), torch.tensor([[2.0, 4.0]])),
+                   (m[1], torch.tensor([[2.0]]), torch.tensor([[6.0, 0.0]]))]
+    torch.testing.assert_close(fa.merge_partials(both_masked), torch.tensor([[2.0, 1.0]]))
+
+
+def test_hi_lo_split_of_the_probabilities_keeps_f32_accuracy():
+    """P = P_hi + P_lo in bf16, both multiplied with bf16 V into f32, against
+    the f32 product: 2e-5, where one rounding of P gives bf16 level."""
+    rs = np.random.RandomState(8)
+    p = torch.softmax(torch.from_numpy(rs.randn(64, 752).astype(np.float32)) * 3, dim=-1)
+    p = p / p.amax(dim=-1, keepdim=True)  # as the kernel holds them: exp(s - m), at most 1
+    v = torch.from_numpy(rs.randn(752, 32).astype(np.float32)).bfloat16().float()
+    hi, lo = fa.split_hi_lo(p)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    exact = (p.double() @ v.double()).float()
+    two = hi.float() @ v + lo.float() @ v
+    one = hi.float() @ v
+    scale = float(exact.abs().max())
+    assert float((two - exact).abs().max()) <= 2e-5 * scale
+    assert float((one - exact).abs().max()) > 1e-4 * scale  # a single rounding is not enough
+    np.testing.assert_allclose((hi.float() + lo.float()).numpy(), p.numpy(), rtol=2e-5, atol=0)

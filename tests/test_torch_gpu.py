@@ -5,11 +5,12 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The checks are ``chip_smoke.py``'s own.  Kernels K1, K2 and K3 against their
-plain versions on the card and scipy on the host, by optimal cost to
-1e-2 * max(1, |cost|) since ties may pick different indices.  Kernel K4
-against its plain blockwise version: 1e-5 on f32 inputs (the sums run in
-another order), one bf16 rounding (1e-2) on bf16 inputs.  The tiny f32
+The checks are ``chip_smoke.py``'s own.  Kernels K1, K2 (both variants) and K3
+against their plain versions on the card and scipy on the host, by optimal
+cost to 1e-2 * max(1, |cost|) since ties may pick different indices.  Kernel
+K4 (both variants, and which one ran) against its plain blockwise version:
+1e-5 on f32 inputs (the sums run in another order), one bf16 rounding (1e-2)
+on bf16 inputs.  The tiny f32
 evaluation step and long-clip predict on the card against the CPU, TF32 off,
 to 1e-3, since the two devices sum convolutions and matmuls in a different
 order.
@@ -70,6 +71,37 @@ def test_k2_kernel_vs_plain_scipy_and_k1(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", chip_smoke.K2_WARP_SHAPES + chip_smoke.K2_BLOCK_SHAPES, ids=_ids)
+def test_k2_variants_at_their_edges(cuda, shape):
+    """The warp variant at nc + 1 = 33, 64, 65, 128 and 256, the block variant
+    at 257 and beyond: each against plain and scipy, counted per variant
+    (``k2_against_references`` raises when the other variant ran)."""
+    variant = "warp" if shape in chip_smoke.K2_WARP_SHAPES else "block"
+    assert hungarian.block_variant(*shape[1:]) == variant
+    rng = np.random.RandomState(shape[1] + shape[2])
+    for kind in chip_smoke.K1_COST_KINDS:
+        before = chip_smoke.launch_counts()
+        chip_smoke.k2_against_references(chip_smoke.k1_costs(rng, shape, kind), cuda, kind)
+        after = chip_smoke.launch_counts()
+        assert after[f"K2 {variant}"] == before[f"K2 {variant}"] + 1
+        assert after["K2"] == before["K2"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(192, 10, 20), (24, 40, 60), (7, 30, 31)], ids=_ids)
+def test_k2_warp_variant_equals_plain_and_k1_index_for_index(cuda, shape):
+    """Same arithmetic and tie-break as the other kernels: the same indices,
+    not only the same cost, also on tie-heavy costs."""
+    rng = np.random.RandomState(sum(shape))
+    for kind in chip_smoke.K1_COST_KINDS:
+        cost = torch.from_numpy(chip_smoke.k1_costs(rng, shape, kind)).to(cuda)
+        got = hungarian.lsap(cost, force_block=True)
+        assert torch.equal(got, hungarian.lsap_plain(cost))
+        if shape[2] + 1 <= hungarian.LSEG:
+            assert torch.equal(got, hungarian.lsap_lane(cost))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(24, 40, 60), (8, 16, 16), (3, 1, 1), (4, 70, 70)], ids=_ids)
 def test_k3_kernel_vs_plain_and_scipy(cuda, shape):
     rng = np.random.RandomState(shape[1] + shape[2])
@@ -91,6 +123,58 @@ def test_k4_kernel_vs_plain(cuda, shape, dtype):
         q, k, v, bias = chip_smoke.attention_inputs(rng, b, h, sq, sk, d, dtype, cuda, bias_kind,
                                                     projected=bias_kind == "padding")
         chip_smoke.k4_against_plain(q, k, v, bias, bias_kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,split", [
+    ((8, 8, 752, 752, 32), False), ((8, 8, 41, 752, 32), True),  # the long clip's two shapes
+    ((2, 2, 1, 752, 32), True), ((2, 2, 16, 40, 32), False), ((2, 2, 17, 100, 64), True),
+    ((1, 2, 41, 200, 128), True), ((2, 4, 41, 130, 64), True), ((3, 2, 16, 65, 32), True),
+    ((2, 2, 300, 190, 128), True), ((8, 8, 300, 70, 64), False)], ids=lambda x: _ids(x) if isinstance(x, tuple) else str(x))
+def test_k4_tensor_core_variant(cuda, shape, split):
+    """bf16 inputs at head dims 32, 64 and 128 take the tensor-core variant:
+    query sides of 1, 16, 17 and 41 rows, key sides below one tile and ragged,
+    the keys split where the query side is short (clip 0 of the padding bias
+    has every key padded, so whole ranges of the split are masked)."""
+    rng = np.random.RandomState(sum(shape))
+    b, h, sq, sk, d = shape
+    for bias_kind in ("padding", "full", "none"):
+        q, k, v, bias = chip_smoke.attention_inputs(rng, b, h, sq, sk, d, torch.bfloat16, cuda,
+                                                    bias_kind, projected=bias_kind == "padding")
+        chip_smoke.k4_against_plain(q, k, v, bias, bias_kind, "tensor", split)
+
+
+@pytest.mark.gpu
+def test_k4_counts_each_variant_and_misaligned_bf16_takes_the_f32_cores(cuda):
+    rng = np.random.RandomState(3)
+    chip_smoke.reset_launch_counts()
+    q, k, v, bias = chip_smoke.attention_inputs(rng, 2, 4, 41, 200, 32, torch.bfloat16, cuda,
+                                                "padding", shifted=True)
+    assert q.data_ptr() % 16 == 8  # 8- but not 16-byte aligned
+    chip_smoke.k4_against_plain(q, k, v, bias, "shifted", "f32", False)
+    q, k, v, bias = chip_smoke.attention_inputs(rng, 2, 4, 41, 200, 32, torch.bfloat16, cuda,
+                                                "padding", projected=True)
+    chip_smoke.k4_against_plain(q, k, v, bias, "projected", "tensor", True)
+    chip_smoke.k4_against_plain(q.float(), k.float(), v.float(), bias, "f32", "f32", False)
+    counts = chip_smoke.launch_counts()
+    assert (counts["K4"], counts["K4 tensor"], counts["K4 f32"], counts["K4 split"]) == (3, 1, 2, 1)
+
+
+@pytest.mark.gpu
+def test_k4_tensor_core_variant_under_a_cuda_graph(cuda):
+    """Nothing on the per-call path but the launches: a captured call replays
+    to the same answer, the split's scratch included."""
+    rng = np.random.RandomState(4)
+    q, k, v, bias = chip_smoke.attention_inputs(rng, 2, 4, 41, 752, 32, torch.bfloat16, cuda,
+                                                "padding", projected=True)
+    want = fa.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fa.flash_attention(q, k, v, bias)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

@@ -184,3 +184,37 @@ def test_expansion_count_behind_the_bound():
     assert jv_expansions(np.zeros((1, 3, 5), np.float32)) == 1 + 2 + 3
     costs = k1_costs(np.random.RandomState(7), (16, 10, 20), "random")
     assert 16 * 10 <= jv_expansions(costs) <= 16 * 55
+
+
+@pytest.mark.parametrize("nr,nc,want", [
+    (40, 60, "warp"),  # the long evaluation step
+    (10, 20, "warp"),  # K1's width, when K2 is forced
+    (1, 1, "warp"),
+    (32, 32, "warp"), (63, 63, "warp"), (64, 64, "warp"), (100, 127, "warp"), (60, 255, "warp"),
+    (64, 255, "block"),  # 255 columns fit the lanes, 64 rows of them not the 64 KB
+    (255, 255, "block"),
+    (20, 256, "block"),  # nc + 1 = 257
+    (120, 300, "block"),
+    (126, 126, "warp"), (127, 127, "block"),  # the 64 KB line on square problems
+])
+def test_k2_variant_is_a_pure_function_of_the_shape(nr, nc, want):
+    assert hungarian.block_variant(nr, nc) == want
+
+
+def test_ordered_key_is_monotone_over_every_bid():
+    """The uint32 image the warp variant reduces over: strictly increasing
+    where the f32 bids are, equal where they are equal (-0 and +0)."""
+    bids = np.array([-np.inf, -3.0e38, -1.0e18, -2.5, -1.0, -1.0e-30, -1.0e-45, -0.0, 0.0,
+                     1.0e-45, 1.0e-30, 1.0, 2.5, 1.0e4, 1.0e18, 3.0e38, np.inf], np.float32)
+    keys = hungarian.ordered_key(bids).astype(np.int64)
+    assert keys.dtype == np.int64 and hungarian.ordered_key(bids).dtype == np.uint32
+    for i in range(len(bids)):
+        for j in range(len(bids)):
+            assert (bids[i] < bids[j]) == (keys[i] < keys[j]), (bids[i], bids[j])
+            assert (bids[i] == bids[j]) == (keys[i] == keys[j]), (bids[i], bids[j])
+    rs = np.random.RandomState(9)
+    x = (rs.randn(4096) * 10.0 ** rs.randint(-20, 19, 4096)).astype(np.float32)
+    order = np.argsort(x, kind="stable")
+    assert (np.diff(hungarian.ordered_key(x[order]).astype(np.int64)) >= 0).all()
+    # the clamp of a live bid and the +inf of a dead column keep their order
+    assert hungarian.ordered_key(np.float32(hungarian.INF)) < hungarian.ordered_key(np.float32(np.inf))
