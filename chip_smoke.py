@@ -10,9 +10,10 @@ nvcc for sm_90a, all started together), then:
 
 1. prints the card's name and power limit and each build's time;
 2. holds every kernel against its plain PyTorch version on the card: the
-   Hungarian kernels K1, K2 and K3 also against scipy on the host (random,
-   tie-heavy and BIG-padded costs, K2 against K1 too; K2's warp variant at
-   nc + 1 = 33, 64, 65, 128 and 256 and its block variant beyond), the
+   Hungarian kernels K1, K2 and K3 index for index, and against scipy on the
+   host (random, tie-heavy and BIG-padded costs; K2's warp variant at
+   nc + 1 = 33, 64, 65, 128 and 256 and its block variant beyond; K3's warp
+   variant up to n = 126 and its square variant from 127), the
    flash-attention kernel K4 at the long clip's two shapes in bf16 and f32,
    at a ragged tiny shape and at head dims 64 and 128, with a key-padding
    bias (one clip's keys all padded), a full bias and none; its tensor-core
@@ -34,15 +35,16 @@ nvcc for sm_90a, all started together), then:
    K2 must launch once per step, its warp variant, and K4 six times; the
    step's own cost is
    solved again by scipy, and by K3 through ``lsap_square`` on the
-   square-padded copy;
+   square-padded copy, which must take K3's warp variant;
 7. times every kernel at the path's shape (device time: CUDA events around a
    replayed CUDA graph of 20 launches; and per call launched from Python) and
    its plain version, computes its bound from bytes and operations, prints a
    second figure beside it on a line of its own (K1-K3: a model of the
-   longest search's dependent steps, counted by hand from the sources and
+   longest search's dependent steps, counted by hand from the source and
    priced at step latencies timed on the card, with the cycles an expansion
    really took; K4: its exponentials at an assumed special-function rate),
-   and for K4 times the library call ``F.scaled_dot_product_attention``;
+   times K1 also at every shape of ``K1_SHAPES`` on seeded costs, and for K4
+   times the library call ``F.scaled_dot_product_attention``;
 8. profiles the 10 s evaluation step and the long predict into
    ``chiprun_out/``.
 
@@ -102,33 +104,29 @@ JV_OPS_PER_COLUMN = 8
 # Exponentials an SM's special-function units finish per clock (4 units in
 # each of its 4 partitions): the assumption behind K4's tighter figure.
 EXP_PER_CLOCK_PER_SM = 16
-# A model, not a bound: the dependent steps of one Dijkstra expansion, counted
-# by hand from each JV kernel's source as it stands (shared-memory reads,
-# shuffles, integer warp minima, f32-pipe instructions that must follow one
-# another before the next expansion can start).  Nothing ties the counts to
-# the sources: recount after an edit there.  The measured figure beside it is
-# the cycles an expansion took, from the kernel's device time.
-#   K1: p[j0] and u[i0] by shuffle (the cost read runs beside the second), two
-#       subtractions, compare, select and clamp, five butterfly levels of a
-#       shuffle and three compares and selects, so 7 shuffles and 20 others.
-#   K2, warp variant with C columns a lane: u[i0] and the cost entry read side
-#       by side, two subtractions, compare, select, clamp and the live select,
-#       the lane's fold (two a column), three for the ordered key, a warp
-#       minimum, compare and select, a second warp minimum, unpack and address.
-#   K3 with c = ceil((n + 1) / 32) columns a lane: p, u, the flags after the
-#       lane-0 write, a pass (a read, two subtractions, four more, then two a
-#       further column), the butterfly, an update pass and the read after it.
-JV_CHAIN_STEPS = {
-    "K1": lambda c: {"shared_read": 0, "shuffle": 7, "warp_min": 0, "f32_add": 20},
-    "K2": lambda c: {"shared_read": 1, "shuffle": 0, "warp_min": 2, "f32_add": 13 + 2 * c},
-    "K3": lambda c: {"shared_read": 6, "shuffle": 5, "warp_min": 0, "f32_add": 22 + 2 * (c - 1)},
-}
+# A model, not a bound: the dependent steps of one Dijkstra expansion of
+# ``jv_warp_kernel<C>``, the one body that K1 (C = 1) and the warp variants of
+# K2 and K3 (C = 2, 4, 8) share, counted by hand from its source as it stands
+# (shared-memory reads, integer warp minima, f32-pipe instructions that must
+# follow one another before the next expansion can start; the work once per
+# inserted row is left out).  Nothing ties the counts to the source: recount
+# after an edit there.  The measured figure beside it is the cycles an
+# expansion took, from the kernel's device time, the work per row included.
+#   u[i0] and the cost entry read side by side, two subtractions, compare,
+#   select, clamp and the live select, the lane's fold (two a column after
+#   the first), three for the ordered key, a warp minimum, compare and
+#   select, a second warp minimum, unpack and address.
+def jv_chain_steps(c: int) -> dict:
+    return {"shared_read": 1, "shuffle": 0, "warp_min": 2, "f32_add": 11 + 2 * c}
+
+
 K1_SHAPES = [(192, 10, 20), (192, 20, 20), (1200, 20, 20)]
 WIDE_SHAPES = [(24, 40, 60), (192, 10, 20), (8, 100, 100)]  # K2 and K3
+K3_EDGE_SHAPES = [(1, 126, 126), (1, 127, 127)]  # K3's warp variant, then its square one
 K2_WARP_SHAPES = [(6, 20, 32), (6, 30, 63), (6, 30, 64), (4, 50, 127), (3, 40, 255)]
 K2_BLOCK_SHAPES = [(2, 60, 256), (2, 120, 300)]  # nc + 1 = 257 and beyond
 K1_COST_KINDS = ("random", "ties", "big")
-K3_PLAIN_PROBLEMS = 8  # K3's plain version solves one problem at a time: a few per batch
+K3_PLAIN_PROBLEMS = 4  # K3's plain version solves one problem at a time: a few per batch
 SECONDS = 10.0
 LONG_SECONDS = 60.0
 LONG_BATCH = 8
@@ -201,11 +199,12 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Every wrapper's count, and under ``"K2 warp"``, ``"K4 tensor"`` and so
-    on the counts of the variants that K2 and K4 dispatch between."""
-    k2, k4 = hungarian.lsap_block, flash_attention.flash_attention
+    on the counts of the variants that K2, K3 and K4 dispatch between."""
+    k2, k3, k4 = hungarian.lsap_block, hungarian.lsap_square, flash_attention.flash_attention
     return {"K1": hungarian.lsap_lane.launches, "K2": k2.launches,
-            "K3": hungarian.lsap_square.launches, "K4": k4.launches,
+            "K3": k3.launches, "K4": k4.launches,
             "K2 warp": k2.launches_warp, "K2 block": k2.launches_block,
+            "K3 warp": k3.launches_warp, "K3 square": k3.launches_square,
             "K4 tensor": k4.launches_tensor, "K4 f32": k4.launches_f32,
             "K4 split": k4.launches_split}
 
@@ -282,21 +281,23 @@ def scipy_optimum(costs: np.ndarray) -> np.ndarray:
 
 def lsap_against_references(kernel, plain, costs: np.ndarray, dev: torch.device,
                             label: str) -> float:
-    """A rectangular JV kernel and its plain version against scipy on one
-    batch of problems; returns the largest |cost(kernel) - optimum|.  Raises
-    past 1e-2 * max(1, |optimum|): ties may pick other indices, never another
-    cost."""
+    """A rectangular JV kernel against its plain version, index for index
+    (the same arithmetic and tie-break), and against scipy on one batch of
+    problems; returns the largest |cost(kernel) - optimum|.  Raises past
+    1e-2 * max(1, |optimum|): scipy may break ties otherwise, never at
+    another cost."""
     cost_dev = torch.from_numpy(costs).to(dev)
     got = kernel(cost_dev).cpu().numpy()
     got_plain = plain(cost_dev).cpu().numpy()
+    if not np.array_equal(got, got_plain):
+        raise AssertionError(f"{label}: kernel and plain version differ in "
+                             f"{int((got != got_plain).any(axis=1).sum())} problems")
     best = scipy_optimum(costs)
     tol = 1e-2 * np.maximum(1.0, np.abs(best))
-    err_k = np.abs(assignment_cost(costs, got) - best)
-    err_p = np.abs(assignment_cost(costs, got_plain) - best)
-    if not (err_k <= tol).all() or not (err_p <= tol).all():
-        raise AssertionError(f"parity failed at {label}: kernel {err_k.max()}, "
-                             f"plain {err_p.max()}")
-    return float(err_k.max())
+    err = np.abs(assignment_cost(costs, got) - best)
+    if not (err <= tol).all():
+        raise AssertionError(f"parity failed at {label}: |cost - optimum| {err.max()}")
+    return float(err.max())
 
 
 def k1_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
@@ -304,43 +305,48 @@ def k1_against_references(costs: np.ndarray, dev: torch.device, label: str) -> f
                                    "K1 " + label)
 
 
-def k2_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
-    """K2 against its plain version and scipy, and against K1 where K1 fits;
-    the launch must count into the variant that ``block_variant`` names."""
-    want = "K2 " + hungarian.block_variant(*costs.shape[1:])
+def took_variant(name: str, want: str, call, label: str):
+    """``call()``, which must count one launch of kernel ``name``, of its
+    variant ``want``; returns what ``call`` returns."""
     before = launch_counts()
-    err = lsap_against_references(hungarian.lsap_block, hungarian.lsap_plain, costs, dev,
-                                  "K2 " + label)
+    out = call()
     after = launch_counts()
-    took = {k: after[k] - before[k] for k in ("K2", "K2 warp", "K2 block")}
-    assert took["K2"] == took[want] == 1, f"K2 at {label} should take {want}: {took}"
-    if costs.shape[2] + 1 <= hungarian.LSEG:
-        cost_dev = torch.from_numpy(costs).to(dev)
-        via_k1 = assignment_cost(costs, hungarian.lsap_lane(cost_dev).cpu().numpy())
-        via_k2 = assignment_cost(costs, hungarian.lsap(cost_dev, force_block=True).cpu().numpy())
-        assert np.allclose(via_k1, via_k2, rtol=1e-2, atol=1e-2), f"K2 vs K1 at {label}"
-    return err
+    took = {k: after[k] - before[k] for k in after if k.split()[0] == name}
+    assert took[name] == took[f"{name} {want}"] == 1, f"{name} at {label} should take {want}: {took}"
+    return out
+
+
+def k2_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
+    """K2 against its plain version (index for index) and scipy; the launch
+    must count into the variant that ``block_variant`` names."""
+    return took_variant("K2", hungarian.block_variant(*costs.shape[1:]),
+                        lambda: lsap_against_references(hungarian.lsap_block,
+                                                        hungarian.lsap_plain, costs, dev,
+                                                        "K2 " + label), label)
 
 
 def k3_against_references(costs: np.ndarray, dev: torch.device, label: str) -> float:
     """K3 on the square-padded copy of rectangular costs against its plain
-    version (a few problems) and scipy.  The padding rows cost BIG in every
-    column, so the optimum over the real rows is the rectangle's; compared on
-    the real rows, to the same 1e-2 * max(1, |optimum|)."""
+    version (a few problems, index for index) and scipy; the launch must
+    count into the variant that ``square_variant`` names.  The padding rows
+    cost BIG in every column, so the optimum over the real rows is the
+    rectangle's; compared on the real rows, to the same
+    1e-2 * max(1, |optimum|)."""
     b, nr, nc = costs.shape
     square = matcher._square_pad(torch.from_numpy(costs).to(dev))
-    got = hungarian.lsap_square(square).cpu().numpy()
+    got = took_variant("K3", hungarian.square_variant(nc),
+                       lambda: hungarian.lsap_square(square).cpu().numpy(), label)
     n_plain = min(K3_PLAIN_PROBLEMS, b)
     got_plain = hungarian.lsap_square_plain(square[:n_plain]).cpu().numpy()
+    if not np.array_equal(got[:n_plain], got_plain):
+        raise AssertionError(f"K3 at {label}: kernel and plain version differ")
     best = scipy_optimum(costs)
     tol = 1e-2 * np.maximum(1.0, np.abs(best))
     real = lambda out: np.where(out < nr, out, -1).astype(np.int32)  # drop the padding rows
-    err_k = np.abs(assignment_cost(costs, real(got)) - best)
-    err_p = np.abs(assignment_cost(costs[:n_plain], real(got_plain)) - best[:n_plain])
-    if not (err_k <= tol).all() or not (err_p <= tol[:n_plain]).all():
-        raise AssertionError(f"K3 parity failed at {label}: kernel {err_k.max()}, "
-                             f"plain {err_p.max()}")
-    return float(err_k.max())
+    err = np.abs(assignment_cost(costs, real(got)) - best)
+    if not (err <= tol).all():
+        raise AssertionError(f"K3 parity failed at {label}: |cost - optimum| {err.max()}")
+    return float(err.max())
 
 
 def jv_expansions(costs: np.ndarray) -> int:
@@ -394,25 +400,33 @@ def jv_expansions_each(costs: np.ndarray) -> list:
 def jv_bound(cost: torch.Tensor) -> dict:
     """The least time a JV kernel could take on ``cost``: the bytes it must
     move (the cost read once, the int32 answer written once) over the memory
-    rate, against its f32 operations on these costs over the f32 rate."""
+    rate, against its f32 operations on these costs over the f32 rate; also
+    the expansions of the longest search."""
     b, nr, nc = cost.shape
     nbytes = cost.numel() * 4 + b * nc * 4
-    expansions = jv_expansions(cost.cpu().numpy())
+    each = jv_expansions_each(cost.cpu().numpy())
+    expansions = sum(each)
     ops = expansions * (nc + 1) * JV_OPS_PER_COLUMN
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return {"ms": max(bytes_ms, ops_ms), "by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "bytes_ms": bytes_ms, "expansions": expansions, "ops": ops,
-            "ops_ms": ops_ms}
+            "ops_ms": ops_ms, "longest": max(each)}
 
 
-def jv_chain(name: str, cost: torch.Tensor, latency: dict, clock_hz: float) -> dict:
-    """A model of a JV kernel's time (hand counts, so no bound): the longest
-    search of the batch (expansions of one problem; problems run side by side)
-    times the cycles of one expansion's dependent steps, ``JV_CHAIN_STEPS`` at
-    the step latencies the probe timed on this card, over the SM clock."""
-    longest = max(jv_expansions_each(cost.cpu().numpy()))
-    columns_per_lane = -(-(cost.shape[2] + 1) // 32)
-    steps = JV_CHAIN_STEPS[name](columns_per_lane)
+def warp_columns(name: str, nc: int) -> int:
+    """C, the columns a lane of ``jv_warp_kernel<C>`` when kernel ``name``
+    runs it on nc columns: 1 for K1, else the least of 2, 4 and 8 that holds
+    the virtual root and the columns (``sedt_jv_warp``)."""
+    return 1 if name == "K1" else next(c for c in (2, 4, 8) if 32 * c >= nc + 1)
+
+
+def jv_chain(name: str, nc: int, longest: int, latency: dict, clock_hz: float) -> dict:
+    """A model of the warp kernel's time (hand counts, so no bound): the
+    longest search of the batch (``longest`` expansions of one problem;
+    problems run side by side) times the cycles of one expansion's dependent
+    steps, ``jv_chain_steps`` at the step latencies the probe timed on this
+    card, over the SM clock."""
+    steps = jv_chain_steps(warp_columns(name, nc))
     cycles = sum(n * latency[kind] for kind, n in steps.items())
     return {"ms": longest * cycles / clock_hz * 1e3, "longest": longest, "cycles": cycles,
             "steps": steps}
@@ -424,7 +438,7 @@ def time_jv(name: str, kernel, plain, cost: torch.Tensor, card: str, plain_iters
     eager_ms = cuda_ms(lambda: kernel(cost), 100)
     plain_ms = cuda_ms(lambda: plain(cost), plain_iters, warmup=plain_warmup)
     bound = jv_bound(cost)
-    chain = jv_chain(name, cost, latency, clock_hz)
+    chain = jv_chain(name, cost.shape[2], bound["longest"], latency, clock_hz)
     print(f"{name} {list(cost.shape)}: {ms:.5f} ms on the device ({eager_ms:.5f} ms per call "
           f"launched back to back from Python), plain version {plain_ms:.3f} ms, "
           f"bound {bound['ms']:.7f} ms by {bound['by']} ({card})")
@@ -439,6 +453,28 @@ def time_jv(name: str, kernel, plain, cost: torch.Tensor, card: str, plain_iters
     return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
             "bound_by": bound["by"],
             "library_ms": None}  # no PyTorch call computes a linear sum assignment
+
+
+def seeded_k1_cost(shape, kind: str, dev) -> torch.Tensor:
+    """The costs K1 is timed on away from the eval step, the same in every
+    checkout of the port (``tools/time_jv_kernels.py`` times them too)."""
+    return torch.from_numpy(k1_costs(np.random.RandomState(SEED), shape, kind)).to(dev)
+
+
+def time_k1_shapes(dev, card: str, clock_hz: float) -> None:
+    """K1's device time at every shape of ``K1_SHAPES`` on seeded BIG-padded
+    costs (as the matcher's are: a clip's events fill some target slots, the
+    rest cost BIG), with its bound and the cycles an expansion of the longest
+    search took."""
+    for shape in K1_SHAPES:
+        cost = seeded_k1_cost(shape, "big", dev)
+        ms = device_ms(lambda: hungarian.lsap_lane(cost))
+        bound = jv_bound(cost)
+        longest = bound["longest"]
+        print(f"K1 {list(shape)} on seeded BIG-padded costs: {ms:.5f} ms on the device, "
+              f"bound {bound['ms']:.7f} ms by {bound['by']}; {longest} expansions in the "
+              f"longest search, {ms * 1e-3 * clock_hz / longest:.1f} cycles an expansion "
+              f"({card})")
 
 
 # ------------------------------------------------------ K4: flash attention
@@ -571,6 +607,12 @@ def check_kernels(dev: torch.device) -> dict:
             errs["K2"], errs["K3"] = max(errs["K2"], e2), max(errs["K3"], e3)
             print(f"K2 and K3 parity {list(shape)} {kind}: ok, max |cost - optimum| "
                   f"{e2:.3g} and {e3:.3g}")
+    for shape in K3_EDGE_SHAPES:  # K3's two variants at their edge
+        for kind in K1_COST_KINDS:
+            errs["K3"] = max(errs["K3"], k3_against_references(k1_costs(rng, shape, kind), dev,
+                                                               f"{shape} {kind}"))
+        print(f"K3 parity {list(shape)} ({hungarian.square_variant(shape[2])} variant): ok on "
+              f"{', '.join(K1_COST_KINDS)} costs")
     # K2's two variants at their edges: the warp variant with 2, 4 and 8 columns
     # a lane up to nc + 1 = 256, the block variant from 257
     for variant, shapes in (("warp", K2_WARP_SHAPES), ("block", K2_BLOCK_SHAPES)):
@@ -992,6 +1034,7 @@ def main() -> None:
           f"{STEPS} steps, batch {batch} ({card})")
     timing = {"K1": time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5,
                             latency, clock_hz)}
+    time_k1_shapes(dev, card, clock_hz)
     shapes = {"K1": list(cost.shape)}
     split_eval_step(model, cfg, batches[0], valid, card)
     profile(lambda: step(batches[0], valid), 3, "eval step", card, "eval_step_profile.txt")
@@ -1018,8 +1061,11 @@ def main() -> None:
     reset_launch_counts()  # K3's path is its entry point: counts from here ...
     square = matcher._square_pad(cost)
     by_k3 = hungarian.lsap_square(square).cpu().numpy()
-    launches["K3"] = launch_counts()["K3"]  # ... to here
-    assert launches["K3"] == 1
+    counts = launch_counts()  # ... to here
+    launches["K3"] = counts["K3"]
+    assert launches["K3"] == counts["K3 warp"] == 1, (
+        f"K3 on the long step's square-padded cost must be one launch of its warp variant: "
+        f"{counts}")
     best = scipy_optimum(cost_np)
     k3_cost = assignment_cost(cost_np, np.where(by_k3 < lm.num_queries, by_k3, -1).astype(np.int32))
     assert (np.abs(k3_cost - best) <= 1e-2 * np.maximum(1.0, np.abs(best))).all()
@@ -1064,19 +1110,24 @@ def main() -> None:
 
     hungarian_src = SOURCE_DIR + "hungarian_jv.cu"
     kernels = [
-        {"name": "K1 jv_lane", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:302",
-         "tpu_kernel": "_jv_lane_kernel", "shape": shapes["K1"], "launches": launches["K1"],
-         "variant": "lane", "max_abs_err": errs["K1"], **timing["K1"]},
-        {"name": "K2 jv_warp", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:197",
-         "tpu_kernel": "_jv_packed_kernel", "shape": shapes["K2"], "launches": launches["K2"],
-         "variant": hungarian.block_variant(*shapes["K2"][1:]), "max_abs_err": errs["K2"],
-         **timing["K2"]},
+        {"name": "K1 lsap_lane", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": shapes["K1"], "launches": launches["K1"], "variant": "warp, 1 column a lane",
+         "max_abs_err": errs["K1"], **timing["K1"]},
+        {"name": "K2 lsap_block", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
+         "shape": shapes["K2"], "launches": launches["K2"],
+         "variant": f"{hungarian.block_variant(*shapes['K2'][1:])}, "
+                    f"{warp_columns('K2', shapes['K2'][2])} columns a lane",
+         "max_abs_err": errs["K2"], **timing["K2"]},
         # K3 is on neither main path (no module of either package dispatches to
         # it): its one launch is its own entry point, lsap_square, called above
-        {"name": "K3 jv_square", "source": hungarian_src, "replaces": PALLAS_DIR + "hungarian.py:120",
-         "tpu_kernel": "_jv_kernel", "shape": shapes["K3"], "launches": launches["K3"],
-         "variant": "square", "on_a_main_path": False, "max_abs_err": errs["K3"],
-         **timing["K3"]},
+        {"name": "K3 lsap_square", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:120", "tpu_kernel": "_jv_kernel",
+         "shape": shapes["K3"], "launches": launches["K3"],
+         "variant": f"{hungarian.square_variant(shapes['K3'][2])}, "
+                    f"{warp_columns('K3', shapes['K3'][2])} columns a lane",
+         "on_a_main_path": False, "max_abs_err": errs["K3"], **timing["K3"]},
     ]
     for name, (sq, sk) in k4_shapes.items():
         kernels.append(

@@ -1,44 +1,29 @@
 // Batched linear sum assignment by Jonker-Volgenant shortest augmenting
-// paths: four kernels for the three TPU kernels of
+// paths: three kernels for the three TPU kernels of
 // sound_event_detection_transformer_tpu/ops/pallas/hungarian.py.
 //
-//   jv_lane_kernel    one warp per problem, nc + 1 <= 32   (`_jv_lane_kernel`)
-//   jv_warp_kernel    one warp per problem, nc + 1 <= 256  (`_jv_packed_kernel`)
-//   jv_block_kernel   one block per problem, any width     (`_jv_packed_kernel`)
-//   jv_square_kernel  one warp per square problem, columns strided over the
-//                     lanes, any n                         (`_jv_kernel`)
+//   jv_warp_kernel<C>  one warp per problem, C columns a lane, nc + 1 <= 32 C:
+//                      C = 1 for `_jv_lane_kernel` (nc + 1 <= 32), C = 2, 4, 8
+//                      for `_jv_packed_kernel` (nc + 1 <= 256) and for
+//                      `_jv_kernel`'s square problems up to n = 126
+//   jv_block_kernel    one block per problem, any width     (`_jv_packed_kernel`)
+//   jv_square_kernel   one warp per square problem, columns strided over the
+//                      lanes, any n                         (`_jv_kernel`)
 //
-// The first three compute the same function: cost f32 [B, nr, nc] with
+// The first two compute the same function: cost f32 [B, nr, nc] with
 // nr <= nc -> row-for-column int32 [B, nc], -1 on the nc - nr columns left
-// free.  Only the nr real rows are inserted.  The fourth takes cost
-// [B, n, n] and returns [B, n].
-//
-// ---- jv_lane_kernel -------------------------------------------------------
-// Replaces `_jv_lane_kernel` (launched by `_lane_packed`, the default of
-// `pallas_hungarian_packed` when nc + 1 <= 32).
-//
-// What bounds it: at the evaluation step's shape [192, 10, 20] the problem
-// moves 169 KB and does about a megaflop, far below what the card needs a
-// microsecond for.  Its time is latency: each problem is a chain of ~55
-// dependent Dijkstra expansions, each a relaxation, a minimum over the
-// columns and a potential update that must finish before the next starts.
-//
-// What the design does about that: one warp holds a whole problem, lane j
-// holding column j (lane 0 the virtual root), so an expansion is one
-// instruction per lane plus a 5-step __shfl_xor_sync butterfly for the
-// minimum, with no shared-memory round trip and no block-wide barrier.  The
-// column state (v, minv, used, way, p) lives in registers; the row potentials
-// u live on lanes 1..nr (nr <= nc < 32), and the cost block sits in shared
-// memory.  Problems are independent, so the warps of a block never
-// synchronise with each other.  Arithmetic is f32 with INF = 1e18 and the
-// lowest-index tie-break of the JAX package, so ties resolve the same way.
+// free.  Only the nr real rows are inserted.  A square problem is the case
+// nr = nc; the third kernel takes cost [B, n, n] and returns [B, n].
+// Arithmetic is f32 with INF = 1e18 and the lowest-index tie-break of the JAX
+// package, so ties resolve the same way in all three and in the plain
+// versions: the answers are the same index for index.
 //
 // Termination does not depend on the costs: the minimum is taken over live
 // (real, unused) columns only, so every expansion uses up one more column,
 // and a free column always remains because nr <= nc.  A live column's bid
 // is clamped to INF, below the +inf of the others, whatever the costs hold.
 // A NaN or infinite cost gives a wrong assignment, never a warp that spins.
-// All four kernels keep this rule.
+// All three kernels keep this rule.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -46,93 +31,26 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = 1.0e18f;
 
-__global__ void jv_lane_kernel(const float* __restrict__ cost,
-                               int* __restrict__ out, int batch, int nr,
-                               int nc) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
-  if (b >= batch) return;  // warp-uniform: the whole warp leaves
-
-  const int block_elems = nr * nc;
-  float* a = smem + warp * block_elems;
-  const float* src = cost + static_cast<long long>(b) * block_elems;
-  for (int k = lane; k < block_elems; k += 32) a[k] = src[k];
-  __syncwarp();
-
-  const bool in_range = lane >= 1 && lane <= nc;  // a real column
-  float v = 0.0f;  // column potential of column `lane`
-  float u = 0.0f;  // row potential of row `lane` (rows 1..nr)
-  int p = 0;       // row (1-indexed) assigned to column `lane`; 0 = free
-
-  for (int i = 1; i <= nr; ++i) {
-    if (lane == 0) p = i;  // the virtual root holds the row being inserted
-    float minv = kInf;
-    bool used = false;
-    bool row_in_tree = false;  // row `lane` reached by this search
-    int way = 0;
-    int j0 = 0;
-    // Dijkstra: grow the alternating tree until it reaches a free column.
-    do {
-      if (lane == j0) used = true;
-      const int i0 = __shfl_sync(kFull, p, j0);
-      if (lane == i0) row_in_tree = true;
-      const float u_i0 = __shfl_sync(kFull, u, i0);
-      const bool live = in_range && !used;
-      if (live) {
-        const float cur = a[(i0 - 1) * nc + (lane - 1)] - u_i0 - v;
-        if (cur < minv) {
-          minv = cur;
-          way = j0;
-        }
-      }
-      // warp min and argmin over the live columns, lowest index on ties;
-      // other lanes bid +inf, above any live bid (clamped to INF, which also
-      // turns a NaN into INF), so they never win
-      float m = live ? fminf(minv, kInf) : CUDART_INF_F;
-      int j1 = lane;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float om = __shfl_xor_sync(kFull, m, off);
-        const int oj = __shfl_xor_sync(kFull, j1, off);
-        if (om < m || (om == m && oj < j1)) {
-          m = om;
-          j1 = oj;
-        }
-      }
-      const float delta = m;
-      if (row_in_tree) u += delta;
-      if (used) {
-        v -= delta;
-      } else {
-        minv -= delta;
-      }
-      j0 = j1;
-    } while (__shfl_sync(kFull, p, j0) != 0);
-    // Augment: walk the path back to the root, shifting assignments.
-    do {
-      const int j1 = __shfl_sync(kFull, way, j0);
-      const int pj1 = __shfl_sync(kFull, p, j1);
-      if (lane == j0) p = pj1;
-      j0 = j1;
-    } while (j0 != 0);
-  }
-  if (in_range) out[static_cast<long long>(b) * nc + (lane - 1)] = p - 1;
-}
-
 // ---- jv_warp_kernel --------------------------------------------------------
-// Replaces `_jv_packed_kernel` (launched by `_sublane_packed`: the dispatch
-// of `pallas_hungarian_packed` when nc + 1 > 32, or when forced) for
-// nc + 1 <= 256 and a cost block of at most 64 KB.
+// One body for three TPU kernels, told apart only by C, the columns a lane:
+//   C = 1     replaces `_jv_lane_kernel` (launched by `_lane_packed`, the
+//             default of `pallas_hungarian_packed` when nc + 1 <= 32);
+//   C = 2..8  replaces `_jv_packed_kernel` (launched by `_sublane_packed`: the
+//             dispatch of `pallas_hungarian_packed` when nc + 1 > 32, or when
+//             forced) for nc + 1 <= 256, and `_jv_kernel` (`jv_body`, reached
+//             through `pallas_hungarian`) for square problems with nr = nc,
+//             each with a cost block and state of at most 64 KB.
 //
-// What bounds it: at the long-clip evaluation step's shape [24, 40, 60] it
-// moves 236 KB and does a few megaflops; its time is the chain of dependent
-// expansions, up to 1 + 2 + ... + nr = 820 a problem, so what counts is the
-// number of dependent instructions in one expansion, not bytes or operations.
+// What bounds it: at the evaluation step's shape [192, 10, 20] a launch moves
+// 169 KB, at the long-clip step's [24, 40, 60] 236 KB, and either does a few
+// megaflops; its time is the chain of dependent expansions of the longest
+// search (about 55 at the first shape, up to 1 + 2 + ... + nr = 820 at the
+// second, 1,830 for a square n = 60), so what counts is the number of
+// dependent instructions in one expansion and in the work once per row, not
+// bytes or operations.
 //
 // What the design does about that: one warp per problem and no block
 // barrier anywhere.  Lane l owns columns l, l + 32, ... (C a lane, a template
@@ -140,28 +58,40 @@ __global__ void jv_lane_kernel(const float* __restrict__ cost,
 // row and the `used` bits stay in registers).  The chain of one expansion is:
 //   read u[i0] and the cost row's entries from shared memory (in parallel),
 //   two subtractions, a compare-select, the lane's own fold over its C
-//   columns (ascending, so the lowest index wins), then two integer warp
+//   columns (ascending, so the lowest index wins; the body is selects only,
+//   since a branch around the cost read parts the lanes and was far slower
+//   on the card at C = 2), then two integer warp
 //   reductions (`redux.sync` through __reduce_min_sync): the first over an
 //   order-preserving unsigned image of the f32 bid, the second, among the
 //   lanes that hold that minimum, over (column << 8 | row assigned to it).
 // The second reduction hands every lane the next column and its row at once,
-// so the read of p[j0] that used to open each expansion is gone, and so are
-// the ten shuffles and five compare-selects of the butterfly.  Row potentials
+// so no read of p[j0] and no shuffle sits on the chain.  Row potentials
 // of rows in the tree ride in the registers of the lane that owns the row's
 // column and are written back once per inserted row: each is read once, when
 // its row enters the tree, so the search writes no shared memory at all.
-// The augmenting walk is serial pointer chasing over shared memory, lane 0's.
+// The augmenting walk: at C = 1 each lane holds its column's row and `way`,
+// so every lane first takes the row of the column it points back to (one
+// shuffle), the path is followed by one shuffle a link, and the lanes on it
+// keep the row they took: no shared memory and no barrier but the one that
+// publishes the row potentials.  At C = 1 a row is inserted after only about
+// 5.5 expansions at the evaluation step's shape, so this per-row work counts:
+// timed on the card against the shared-memory walk below forced at C = 1,
+// the shuffle walk was the faster at each of K1's three shapes on random,
+// tie-heavy and BIG-padded costs; so it was against a walk-free variant
+// that kept each column's path as a bit mask (one more shuffle an
+// expansion) at the 20 x 20 shapes.  At C > 1 the walk is serial pointer
+// chasing over shared memory, lane 0's, since a lane holds several columns.
 // The arithmetic (f32, the order of the subtractions, INF = 1e18, lowest
 // index on ties, -0 bidding as +0) is that of the other kernels, so the
 // answers are the same index for index.  The cost block arrives by cp.async.
 //
 // An unsigned image of an f32 bid whose order is the bids' order: the sign
-// bit of a non-negative is set, a negative is complemented; -0 maps as +0.
-// Bids are clamped before they get here, so no NaN does.
+// bit of a non-negative is set, a negative is complemented (one xor with the
+// sign spread over the word); adding +0 first turns -0 into +0, so the two
+// tie.  Bids are clamped before they get here, so no NaN does.
 __device__ inline unsigned ordered_key(float x) {
-  unsigned bits = __float_as_uint(x);
-  if (bits == 0x80000000u) bits = 0u;
-  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  const unsigned bits = __float_as_uint(x + 0.0f);
+  return bits ^ (static_cast<unsigned>(static_cast<int>(bits) >> 31) | 0x80000000u);
 }
 
 __device__ inline float key_value(unsigned key) {
@@ -197,6 +127,7 @@ __global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__
   for (int k = lane; k <= nc; k += 32) p_s[k] = 0;
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncwarp();
+  const float* a_rows = a - nc;  // cost row of (1-indexed) row i0 at a_rows + i0 nc
 
   float v[C];     // potentials of columns lane, lane + 32, ...
   int pc[C];      // rows (1-indexed) assigned to them; 0 = free
@@ -225,7 +156,10 @@ __global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__
       urow[c] = 0;
       used[c] = false;
     }
-    if (lane == 0) p_s[0] = i;  // the virtual root holds the row being inserted
+    if (lane == 0) {  // the virtual root holds the row being inserted
+      p_s[0] = i;
+      pc[0] = i;
+    }
     int j0 = 0;
     int i0 = i;
     // Dijkstra: grow the alternating tree until it reaches a free column.
@@ -233,7 +167,7 @@ __global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__
     // body is selects only, so the lanes never part ways inside it either.
     do {
       const float u_i0 = u_s[i0];
-      const float* row = a + (i0 - 1) * nc;
+      const float* row = a_rows + i0 * nc;
       float bm = CUDART_INF_F;  // this lane's best live bid ...
       unsigned bc = UINT_MAX;   // ... as column << 8 | its row
 #pragma unroll
@@ -250,7 +184,10 @@ __global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__
         way[c] = better ? j0 : way[c];
         // a live bid is clamped below the +inf of the dead columns
         const float bid = live ? fminf(minv[c], kInf) : CUDART_INF_F;
-        const bool wins = bid < bm;  // ascending columns: the lowest index wins a tie
+        // ascending columns: the lowest index wins a tie.  The first column
+        // needs no compare: if its bid is +inf and none beats it, the lane's
+        // key is above the warp's minimum and bc is never read.
+        const bool wins = c == 0 || bid < bm;
         bm = wins ? bid : bm;
         bc = wins ? static_cast<unsigned>(col << 8 | pc[c]) : bc;
       }
@@ -270,23 +207,38 @@ __global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__
     // Augment: walk the path back to the root, shifting assignments.
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int col = lane + 32 * c;
-      if (col <= nc) way_s[col] = way[c];
       if (used[c]) u_s[urow[c]] = uval[c];
     }
-    __syncwarp();
-    if (lane == 0) {
+    if constexpr (C == 1) {
+      // p[j] takes p[way[j]] on the path; j0 stays warp-uniform, so does the loop
+      const int taken = __shfl_sync(kFull, pc[0], way[0]);
+      bool on_path = false;
       do {
-        const int j1 = way_s[j0];
-        p_s[j0] = p_s[j1];
-        j0 = j1;
+        on_path = on_path || lane == j0;
+        j0 = __shfl_sync(kFull, way[0], j0);
       } while (j0 != 0);
-    }
-    __syncwarp();
+      pc[0] = on_path ? taken : pc[0];
+      __syncwarp();  // the row potentials are written before the next search
+    } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int col = lane + 32 * c;
-      if (col <= nc) pc[c] = p_s[col];
+      for (int c = 0; c < C; ++c) {
+        const int col = lane + 32 * c;
+        if (col <= nc) way_s[col] = way[c];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        do {
+          const int j1 = way_s[j0];
+          p_s[j0] = p_s[j1];
+          j0 = j1;
+        } while (j0 != 0);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int col = lane + 32 * c;
+        if (col <= nc) pc[c] = p_s[col];
+      }
     }
   }
 #pragma unroll
@@ -305,7 +257,7 @@ __global__ void jv_warp_kernel(const float* __restrict__ cost, int* __restrict__
 // with the column state (v, minv, used, way) in registers.  What other
 // threads must read lives in shared memory: the cost block, the assignment
 // p, the row potentials u, and one (min, argmin) pair per warp.  The minimum
-// is the lane kernel's shuffle butterfly inside each warp, then every thread
+// is a shuffle butterfly inside each warp, then every thread
 // folds the per-warp pairs (at most 32) itself, which saves the third
 // barrier a second butterfly would need: two __syncthreads per expansion.
 // The augmenting walk is serial pointer chasing, so thread 0 does it alone.
@@ -409,9 +361,11 @@ __global__ void jv_block_kernel(const float* __restrict__ cost,
 }
 
 // ---- jv_square_kernel -----------------------------------------------------
-// Replaces `_jv_kernel` (`jv_body`, reached through `pallas_hungarian`): the
-// reference formulation, one square problem at a time with data-dependent
-// loops and all column state in arrays, here one warp per problem.
+// Replaces `_jv_kernel` (`jv_body`, reached through `pallas_hungarian`) for
+// the square problems that jv_warp_kernel does not take: n > 126, where the
+// cost block and state pass 64 KB.  The reference formulation, one square
+// problem at a time with data-dependent loops and all column state in
+// arrays, here one warp per problem.
 //
 // What bounds it: the same chain of dependent expansions, n (n + 1) / 2 at
 // most; the cost is read row by row from device memory through the caches
@@ -420,9 +374,10 @@ __global__ void jv_block_kernel(const float* __restrict__ cost,
 //
 // What the design does: lane l owns columns l, l + 32, ...; each expansion is
 // one strided pass to relax and find the lane's best column, a shuffle
-// butterfly across lanes, and one strided pass to update the potentials.  It
-// shares no reduction code with the other two kernels, which is what makes
-// it a cross-check of them on the card.
+// butterfly across lanes, and one strided pass to update the potentials.
+// Its chain holds two passes over shared memory, a read through the caches
+// and two __syncwarp() an expansion, more than jv_warp_kernel's, which is why
+// it serves only what that kernel cannot hold.
 __global__ void jv_square_kernel(const float* __restrict__ cost,
                                  int* __restrict__ out, int n) {
   extern __shared__ float smem[];
@@ -524,6 +479,10 @@ size_t warp_problem_bytes(int nr, int nc) {
 template <int C>
 int launch_warp(const float* cost, int* out, int batch, int nr, int nc,
                 cudaStream_t stream) {
+  // the second warp minimum packs column << 8 | row: rows up to 255
+  if (nr < 0 || nr > nc || nr > 255 || nc + 1 > 32 * C) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t per_problem = warp_problem_bytes(nr, nc);
   // a problem's time is its own chain, so spread the problems over the SMs
   // first and share a block only when there are more problems than SMs
@@ -551,6 +510,7 @@ extern "C" int sedt_jv_init() {
     err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, device);
   }
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<1>, attr, kMaxSharedBytes);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<2>, attr, kMaxSharedBytes);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<4>, attr, kMaxSharedBytes);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(jv_warp_kernel<8>, attr, kMaxSharedBytes);
@@ -563,21 +523,17 @@ extern "C" int sedt_jv_init() {
 // as an int (cudaErrorInvalidValue for a shape its kernel does not take).
 //
 // cost: device f32 [batch, nr, nc], contiguous; out: device int32 [batch, nc].
-// The caller guarantees 0 <= nr <= nc <= 31.
+// The caller guarantees 0 <= nr <= nc <= 31: one column a lane.
 extern "C" int sedt_jv_lane(const float* cost, int* out, int batch, int nr,
                             int nc, void* stream) {
   if (batch <= 0) return 0;
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((batch + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const size_t smem = sizeof(float) * kWarpsPerBlock * nr * nc;
-  jv_lane_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      cost, out, batch, nr, nc);
-  return static_cast<int>(cudaGetLastError());
+  return launch_warp<1>(cost, out, batch, nr, nc, static_cast<cudaStream_t>(stream));
 }
 
-// Same arguments; the caller guarantees 0 <= nr <= nc <= 255.  One problem's
-// cost block and state (4 (nr nc + nr + 2 nc + 3) bytes) must fit a block's
-// shared memory; the wrapper sends only those of at most 64 KB here.
+// Same arguments; the caller guarantees 0 <= nr <= nc <= 255 (nr = nc for a
+// square problem).  One problem's cost block and state
+// (4 (nr nc + nr + 2 nc + 3) bytes) must fit a block's shared memory; the
+// wrapper sends only those of at most 64 KB here.
 extern "C" int sedt_jv_warp(const float* cost, int* out, int batch, int nr,
                             int nc, void* stream) {
   if (batch <= 0) return 0;

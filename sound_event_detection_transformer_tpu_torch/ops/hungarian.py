@@ -3,21 +3,26 @@
 ``lsap(cost)`` solves B independent problems ``cost [B, nr, nc]`` (nr <= nc)
 exactly and returns row-for-column ``[B, nc]`` int32, with -1 on the nc - nr
 columns left free.  It is the counterpart of the JAX package's
-``pallas_hungarian_packed`` and dispatches as that does: the warp-per-problem
-kernel K1 (``_jv_lane_kernel``) when nc + 1 <= 32, kernel K2
-(``_jv_packed_kernel``) for wider problems or when ``force_block`` is set.
-K2 has two variants, chosen by :func:`block_variant` from ``(nr, nc)`` alone:
-``"warp"``, one warp per problem with several columns a lane and no block
-barrier (nc + 1 <= 256 and a cost block of at most 64 KB), and ``"block"``,
-one block per problem, beyond.  ``lsap_square(cost [B, n, n])`` is the
-counterpart of ``pallas_hungarian``: kernel K3 (``_jv_kernel``), one warp per
-square problem with the reference formulation's data-dependent loops.
+``pallas_hungarian_packed`` and dispatches as that does: kernel K1
+(``_jv_lane_kernel``) when nc + 1 <= 32, kernel K2 (``_jv_packed_kernel``) for
+wider problems or when ``force_block`` is set.  ``lsap_square(cost [B, n, n])``
+is the counterpart of ``pallas_hungarian``: kernel K3 (``_jv_kernel``).
+
+One CUDA kernel, ``jv_warp_kernel<C>`` (one warp per problem, C columns a
+lane, no block barrier), serves all three up to 255 columns: K1 at C = 1;
+K2 and K3 at C = 2, 4 or 8.  Beyond, K2 and K3 each have a kernel of their
+own, chosen from the shape alone: :func:`block_variant` gives ``"warp"``
+(nc + 1 <= 256 and a cost block and state of at most 64 KB) or ``"block"``
+(one block per problem); :func:`square_variant` gives ``"warp"`` (n <= 126)
+or ``"square"`` (one warp per problem with the columns strided over the
+lanes and the state in shared memory, any n).
 
 * On a CUDA tensor each wrapper launches its hand-written kernel of
   ``csrc/hungarian_jv.cu`` (built with nvcc for sm_90a on first use, loaded
   with ctypes) or raises, and counts the launch in its ``launches``;
   ``lsap_block`` also counts each variant, in ``launches_warp`` and
-  ``launches_block``.
+  ``launches_block``, and ``lsap_square`` in ``launches_warp`` and
+  ``launches_square``.
 * On a CPU tensor it runs the kernel's plain PyTorch version:
   :func:`lsap_plain` for K1 and K2, :func:`lsap_square_plain` for K3.
 """
@@ -32,9 +37,9 @@ import torch
 from ._build import load_library
 
 INF = 1.0e18
-LSEG = 32  # one warp: the virtual root plus at most 31 columns
+LSEG = 32  # K1: the virtual root plus at most 31 columns, one a lane
 MAX_BLOCK = 1024  # one block: the virtual root plus at most 1023 columns
-MAX_WARP = 256  # K2's warp variant: 32 lanes of at most 8 columns
+MAX_WARP = 256  # the warp variant of K2 and K3: 32 lanes of at most 8 columns
 WARP_SHARED_BYTES = 64 * 1024  # and at most this much cost and state a problem
 
 
@@ -95,7 +100,8 @@ def _launch(wrapper, name: str, cost: torch.Tensor, *dims: int) -> torch.Tensor:
 
 
 def lsap_lane(cost: torch.Tensor) -> torch.Tensor:
-    """K1: cost f32 [B, nr, nc], nr <= nc <= 31 -> [B, nc] int32."""
+    """K1: cost f32 [B, nr, nc], nr <= nc <= 31 -> [B, nc] int32; the warp
+    kernel at one column a lane."""
     _check_cost(cost)
     _, nr, nc = cost.shape
     if nc + 1 > LSEG:
@@ -113,8 +119,15 @@ def block_variant(nr: int, nc: int) -> str:
     return "warp" if nc + 1 <= MAX_WARP and shared <= WARP_SHARED_BYTES else "block"
 
 
+def square_variant(n: int) -> str:
+    """Which of K3's kernels takes an n x n problem: ``"warp"`` where the
+    warp kernel takes it as a rectangle with nr = nc (n <= 126), else
+    ``"square"``."""
+    return "warp" if block_variant(n, n) == "warp" else "square"
+
+
 def ordered_key(x) -> np.ndarray:
-    """The order-preserving uint32 image of f32 bids that K2's warp variant
+    """The order-preserving uint32 image of f32 bids that the warp kernel
     hands to the integer warp minimum, mirrored from the kernel: the sign bit
     of a non-negative is set, a negative is complemented, and -0 maps as +0,
     so that ``a < b`` exactly when ``key(a) < key(b)`` for all non-NaN bids."""
@@ -150,14 +163,22 @@ def lsap_square(cost: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cost must be square, got {n} x {nc}")
     if not cost.is_cuda:
         return lsap_square_plain(cost)
-    return _launch(lsap_square, "sedt_jv_square", cost, n)
+    if square_variant(n) == "warp":
+        out = _launch(lsap_square, "sedt_jv_warp", cost, n, n)
+        lsap_square.launches_warp += 1
+    else:
+        out = _launch(lsap_square, "sedt_jv_square", cost, n)
+        lsap_square.launches_square += 1
+    return out
 
 
 lsap_lane.launches = 0
 lsap_block.launches = 0  # both variants
 lsap_block.launches_warp = 0
 lsap_block.launches_block = 0
-lsap_square.launches = 0
+lsap_square.launches = 0  # both variants
+lsap_square.launches_warp = 0
+lsap_square.launches_square = 0
 
 
 def lsap(cost: torch.Tensor, force_block: bool = False) -> torch.Tensor:

@@ -5,9 +5,11 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The checks are ``chip_smoke.py``'s own.  Kernels K1, K2 (both variants) and K3
-against their plain versions on the card and scipy on the host, by optimal
-cost to 1e-2 * max(1, |cost|) since ties may pick different indices.  Kernel
+The checks are ``chip_smoke.py``'s own.  Kernels K1, K2 and K3 (both
+variants of each of the last two) against their plain versions on the card
+index for index (the same arithmetic and tie-break), and against scipy on the
+host by optimal cost to 1e-2 * max(1, |cost|), since scipy may break ties
+otherwise.  Kernel
 K4 (both variants, and which one ran) against its plain blockwise version:
 1e-5 on f32 inputs (the sums run in another order), one bf16 rounding (1e-2)
 on bf16 inputs.  The tiny f32
@@ -39,6 +41,9 @@ def _ids(shape):
 @pytest.mark.parametrize("shape", [(192, 10, 20), (192, 20, 20), (1200, 20, 20), (5, 31, 31)],
                          ids=_ids)
 def test_k1_kernel_vs_plain_and_scipy(cuda, shape):
+    """The warp kernel at one column a lane: the plain version's indices
+    (``k1_against_references`` raises on any difference) on random,
+    tie-heavy and BIG-padded costs."""
     rng = np.random.RandomState(shape[0] + shape[1])
     for kind in chip_smoke.K1_COST_KINDS:
         before = hungarian.lsap_lane.launches
@@ -62,6 +67,9 @@ def test_k1_rejects_widths_of_k2(cuda):
 @pytest.mark.parametrize("shape", [(24, 40, 60), (8, 33, 33), (192, 10, 20), (3, 1, 5),
                                    (2, 120, 300)], ids=_ids)
 def test_k2_kernel_vs_plain_scipy_and_k1(cuda, shape):
+    """Index for index against the plain version, which shares no code with
+    the kernels (K1 runs the same kernel as K2's warp variant, so it is no
+    cross-check any more)."""
     rng = np.random.RandomState(shape[1] + shape[2])
     for kind in chip_smoke.K1_COST_KINDS:
         before = hungarian.lsap_block.launches
@@ -102,14 +110,46 @@ def test_k2_warp_variant_equals_plain_and_k1_index_for_index(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(24, 40, 60), (8, 16, 16), (3, 1, 1), (4, 70, 70)], ids=_ids)
+@pytest.mark.parametrize("shape", [(24, 40, 60), (8, 16, 16), (3, 1, 1), (4, 70, 70),
+                                   (2, 126, 126), (2, 127, 127)], ids=_ids)
 def test_k3_kernel_vs_plain_and_scipy(cuda, shape):
+    """Both variants (the warp kernel up to n = 126, the square kernel from
+    127) index for index against the plain version, counted per variant."""
     rng = np.random.RandomState(shape[1] + shape[2])
+    variant = hungarian.square_variant(shape[2])
     for kind in chip_smoke.K1_COST_KINDS:
-        before = hungarian.lsap_square.launches
+        before = chip_smoke.launch_counts()
         chip_smoke.k3_against_references(chip_smoke.k1_costs(rng, shape, kind), cuda, kind)
         torch.cuda.synchronize()
-        assert hungarian.lsap_square.launches == before + 1
+        after = chip_smoke.launch_counts()
+        assert after["K3"] == before["K3"] + 1
+        assert after[f"K3 {variant}"] == before[f"K3 {variant}"] + 1
+        other = "square" if variant == "warp" else "warp"
+        assert after[f"K3 {other}"] == before[f"K3 {other}"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")],
+                         ids=["nan", "inf", "-inf"])
+def test_k1_and_k3_end_on_nan_and_inf_costs(cuda, fill):
+    """Garbage in gives an assignment out, never a warp that spins: every
+    real row once, from K1 and from both variants of K3."""
+    rng = np.random.RandomState(5)
+    cost = torch.from_numpy(rng.randn(4, 10, 20).astype(np.float32))
+    cost[0] = fill
+    cost[1, :, ::2] = fill
+    cost[2, 3] = fill
+    out = hungarian.lsap_lane(cost.to(cuda)).cpu()
+    for row in out:
+        assert sorted(int(r) for r in row if r >= 0) == list(range(10))
+    for n in (60, 127):  # the warp variant, then the square one
+        square = torch.from_numpy(rng.randn(3, n, n).astype(np.float32))
+        square[0] = fill
+        square[1, :, n // 2:] = fill
+        square[2, :, ::3] = fill
+        out = hungarian.lsap_square(square.to(cuda)).cpu()
+        for row in out:
+            assert sorted(row.tolist()) == list(range(n))
 
 
 @pytest.mark.gpu

@@ -201,6 +201,16 @@ def test_k2_variant_is_a_pure_function_of_the_shape(nr, nc, want):
     assert hungarian.block_variant(nr, nc) == want
 
 
+@pytest.mark.parametrize("n,want", [
+    (1, "warp"), (31, "warp"),
+    (60, "warp"),  # the long evaluation step's problems, square-padded
+    (126, "warp"),  # 65,028 B of cost and state: the last within 64 KB
+    (127, "square"), (255, "square"), (256, "square"), (300, "square"),
+])
+def test_k3_variant_is_a_pure_function_of_the_size(n, want):
+    assert hungarian.square_variant(n) == want
+
+
 def test_ordered_key_is_monotone_over_every_bid():
     """The uint32 image the warp variant reduces over: strictly increasing
     where the f32 bids are, equal where they are equal (-0 and +0)."""

@@ -25,7 +25,8 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sound_event_detection_transformer_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "sound_event_detection_transformer_tpu"}
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py",
+                                        ROOT / "tools" / "time_jv_kernels.py"]
 
 
 def _imported_roots(path: Path):
