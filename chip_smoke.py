@@ -20,11 +20,24 @@ nvcc for sm_90a, all started together), then:
    variant also at query sides of 1, 16, 17 and 41 rows, at key sides below
    one tile and ragged, with the keys split over blocks, and a bf16 input on
    an 8- but not 16-byte boundary, which must take the f32-core variant;
-3. runs the evaluation step at the tiny f32 geometry, and the tiny long-clip
-   predict (528 encoder tokens, so the card takes K4), on the CPU and on the
-   card from the same weights, and compares the two (TF32 off, to 1e-3);
+3. runs the evaluation step at the tiny f32 geometry, the tiny long-clip
+   predict (528 encoder tokens, so the card takes K4) and two tiny train
+   steps (dropout 0 on the training path), on the CPU and on the card from
+   the same weights, and compares the two (TF32 off, to 1e-3: the losses,
+   and every parameter after each train step);
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
+4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
+   configuration and synthetic batch; dropout 0.1, bf16 autocast over f32
+   parameters) through ``init_train_state`` and ``make_train_step``: K1 must
+   launch once per step and K4 never; every loss finite, the trainable
+   parameters moved, the frozen ones and every FrozenBN buffer unchanged bit
+   for bit; it prints ms/step and clips/s (CUDA events and host clock), the
+   peak memory, the device's busy share under the profiler and the step's
+   FLOPs (``FlopCounterMode``) as a share of the card's dense bf16 peak; then
+   the fine-tune step (``fine_tune``, lr 1e-5: K1 twice a step, at
+   [64,10,20] and [128,10,20]) and the augmented step (the DCASE recipe's
+   mixup 0.6, frequency mask and shift, and a time mask);
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -45,8 +58,8 @@ nvcc for sm_90a, all started together), then:
    really took; K4: its exponentials at an assumed special-function rate),
    times K1 also at every shape of ``K1_SHAPES`` on seeded costs, and for K4
    times the library call ``F.scaled_dot_product_attention``;
-8. profiles the 10 s evaluation step and the long predict into
-   ``chiprun_out/``.
+8. profiles the 10 s evaluation step, the train step and the long predict
+   into ``chiprun_out/``.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -68,13 +81,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
+from torch.utils.flop_counter import FlopCounterMode
 
+from bench_torch import flagship_config, synthetic_batch
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data.dataset import collate
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
 from sound_event_detection_transformer_tpu_torch.data.scaler import Scaler
 from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
-from sound_event_detection_transformer_tpu_torch.engine import make_eval_step
+from sound_event_detection_transformer_tpu_torch.engine import (
+    init_train_state,
+    make_eval_step,
+    make_loss_fn,
+    make_train_step,
+)
 from sound_event_detection_transformer_tpu_torch.models import (
     build_model,
     postprocess,
@@ -132,6 +152,10 @@ LONG_SECONDS = 60.0
 LONG_BATCH = 8
 FUSION = (1, 2, 3)
 STEPS = 10  # timed 10 s evaluation steps
+TRAIN_WARMUP = 3  # flagship train steps before the timed ones
+TRAIN_STEPS = 10  # timed flagship train steps
+FINE_TUNE_STEPS = 3
+AUGMENT_STEPS = 2
 LONG_STEPS = 5  # timed long-clip evaluation steps
 LONG_FORWARDS = 3  # timed long-clip predict batches
 SEED = 0
@@ -758,6 +782,196 @@ def small_reference(dev: torch.device, seed: int) -> float:
     return worst
 
 
+def tiny_train_config() -> SEDTConfig:
+    """The tiny f32 config with dropout 0, so that the training path's
+    random draws decide nothing and two devices can be compared."""
+    cfg = SEDTConfig.tiny_test()
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+
+
+def small_train_step(dev: torch.device, seed: int, steps: int = 2) -> float:
+    """Two tiny f32 train steps on the card against the same steps on the
+    CPU (where K1 is its plain version), from the same weights and batch,
+    TF32 off: the losses and every parameter after each step to 1e-3.
+    Returns the largest difference."""
+    cfg = tiny_train_config()
+    _, batches = make_batches(cfg, 4, 1, seed)
+    runs = {}
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            model, wd = build_model(cfg, device=d, generator=torch.Generator().manual_seed(seed))
+            state = init_train_state(model, cfg, steps_per_epoch=10)
+            step = make_train_step(model, wd, cfg, state.optimizer, device=d)
+            gen = torch.Generator(device=d).manual_seed(seed)
+            runs[d.type] = []
+            for _ in range(steps):
+                metrics = step(batches[0], gen)
+                runs[d.type].append(({k: v.cpu() for k, v in metrics.items()},
+                                     {k: v.cpu().clone() for k, v in model.state_dict().items()}))
+    worst = 0.0
+    for (ref_m, ref_p), (got_m, got_p) in zip(runs["cpu"], runs["cuda"]):
+        for k, r in ref_m.items():
+            assert torch.isfinite(got_m[k]).item() and torch.allclose(got_m[k], r, rtol=1e-3,
+                                                                      atol=1e-3), (k, got_m[k], r)
+            worst = max(worst, float((got_m[k] - r).abs()))
+        for k, r in ref_p.items():
+            assert torch.allclose(got_p[k], r, rtol=1e-3, atol=1e-3), k
+            worst = max(worst, float((got_p[k] - r).abs().max()))
+    return worst
+
+
+def with_lsap_costs(call) -> tuple:
+    """``call()``, with the cost of every ``lsap`` call it makes kept:
+    (what ``call`` returns, [costs])."""
+    seen = []
+    matcher.lsap = lambda cost: (seen.append(cost.clone()), hungarian.lsap(cost))[1]
+    try:
+        out = call()
+    finally:
+        matcher.lsap = hungarian.lsap
+    torch.cuda.synchronize()
+    return out, seen
+
+
+def step_flops(step, batch, gen) -> int:
+    """The FLOPs of one train step as ``FlopCounterMode`` counts them on the
+    port's own step (matrix products and convolutions, forward and
+    backward)."""
+    with FlopCounterMode(display=False) as counter:
+        step(batch, gen)
+    torch.cuda.synchronize()
+    return counter.get_total_flops()
+
+
+def split_train_step(model, wd, cfg, optimizer, batch, gen, card: str, iters: int = 5) -> None:
+    """Forward and criterion / backward / optimizer split of the train step
+    on the host clock, the card synchronised between the parts (in a step
+    they overlap)."""
+    loss_fn = make_loss_fn(model, wd, cfg)
+    parts = collections.defaultdict(float)
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(batch.feats, batch.pad_mask, batch.targets, batch.strong, batch.weak,
+                          gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        optimizer.step()
+        torch.cuda.synchronize()
+        parts["forward and criterion"] += t1 - t0
+        parts["backward"] += t2 - t1
+        parts["clip and AdamW"] += time.perf_counter() - t2
+    for name, seconds in parts.items():
+        print(f"train step part {name}: {seconds / iters * 1e3:.4f} ms/step ({card})")
+
+
+def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: float) -> dict:
+    """Phase 4b: the flagship train step (then fine-tune and augmented);
+    returns K1's launches, parity error and timing on the train step's own
+    cost, for the ``kernels`` line."""
+    cfg = flagship_config()
+    m = cfg.model
+    batch_size = cfg.data.batch_size
+    model, wd = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = init_train_state(model, cfg, steps_per_epoch=100)
+    step = make_train_step(model, wd, cfg, state.optimizer, device=dev)
+    batch = synthetic_batch(cfg, batch_size, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    print("train step: " + describe(cfg, batch_size, sum(p.numel() for p in model.parameters()))
+          + f", dropout {m.dropout}")
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    assert frozen and buffers and trainable
+    assert all(n.startswith(("backbone.conv1", "backbone.layer1_")) for n in frozen), sorted(frozen)
+
+    metrics, costs = with_lsap_costs(lambda: step(batch, gen))  # warm-up 1, its cost kept
+    (cost,) = costs
+    assert cost.shape == (m.dec_layers * batch_size, m.num_queries, m.max_events), cost.shape
+    k1_err = k1_against_references(cost.cpu().numpy(), dev, "the train step's own cost")
+    for _ in range(TRAIN_WARMUP - 1):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_launch_counts()  # the main path: counts from here ...
+    losses = []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(batch, gen)["loss"])
+    stop.record()
+    stop.synchronize()
+    host_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    counts = launch_counts()  # ... to here
+    event_ms = start.elapsed_time(stop) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    assert torch.isfinite(losses).all(), losses
+    assert counts["K1"] == TRAIN_STEPS and counts["K4"] == 0 and counts["K2"] == 0, (
+        f"the train step must launch K1 once a step and K4 never: {counts}")
+    moved = [n for n, p in model.named_parameters() if p.requires_grad
+             and not torch.equal(p.detach(), trainable[n])]
+    assert len(moved) > 0.9 * len(trainable) and {"backbone.conv0.weight",
+                                                   "class_embed.weight"} <= set(moved), (
+        f"{len(moved)} of {len(trainable)} trainable parameters moved")
+    for n, p in model.named_parameters():
+        if n in frozen:
+            assert torch.equal(p.detach(), frozen[n]), f"frozen parameter {n} changed"
+    for n, b in model.named_buffers():
+        assert torch.equal(b, buffers[n]), f"FrozenBN buffer {n} changed"
+    print(f"train step: {event_ms:.3f} ms/step by CUDA events, {batch_size / event_ms * 1e3:.1f} "
+          f"clips/s; {host_s * 1e3:.3f} ms/step by the host clock, {batch_size / host_s:.1f} "
+          f"clips/s; {TRAIN_STEPS} steps, K1 {counts['K1']} launches, K4 {counts['K4']}; "
+          f"losses {losses[0]:.4f} .. {losses[-1]:.4f}; {len(moved)} of {len(trainable)} "
+          f"trainable parameters moved (not {sorted(set(trainable) - set(moved))}), "
+          f"{len(frozen)} frozen ones and {len(buffers)} FrozenBN buffers unchanged; peak "
+          f"memory {peak / 2**30:.3f} GiB ({card})")
+    flops = step_flops(step, batch, gen)
+    print(f"train step: {flops / 1e9:.1f} GFLOP a step counted by FlopCounterMode, "
+          f"{flops / batch_size / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms that is "
+          f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, {flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} "
+          f"of the dense bf16 peak ({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s) ({card})")
+    profile(lambda: step(batch, gen), 3, "train step", card, "train_step_profile.txt")
+    split_train_step(model, wd, cfg, state.optimizer, batch, gen, card)
+    timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5, latency,
+                     clock_hz)
+
+    # the fine-tune stage: relaxed matching, lr fixed at 1e-5
+    ft_state = init_train_state(model, cfg, steps_per_epoch=100, fixed_lr=1e-5)
+    ft_step = make_train_step(model, wd, cfg, ft_state.optimizer, fine_tune=True, device=dev)
+    ft_step(batch, gen)  # warm-up
+    reset_launch_counts()  # the fine-tune path: counts from here ...
+    ft, costs = with_lsap_costs(lambda: [ft_step(batch, gen)["loss"]
+                                         for _ in range(FINE_TUNE_STEPS)])
+    counts = launch_counts()  # ... to here
+    ft = torch.stack(ft).cpu()
+    assert torch.isfinite(ft).all(), ft
+    assert counts["K1"] == 2 * FINE_TUNE_STEPS and counts["K4"] == 0, counts
+    shapes = [list(c.shape) for c in costs]
+    want = [[batch_size, m.num_queries, m.max_events],
+            [(m.dec_layers - 1) * batch_size, m.num_queries, m.max_events]] * FINE_TUNE_STEPS
+    assert shapes == want, shapes
+    print(f"fine-tune step (lr 1e-5): losses {ft.tolist()}, K1 {counts['K1']} launches in "
+          f"{FINE_TUNE_STEPS} steps at {shapes[:2]} ({card})")
+
+    # the DCASE recipe's augmentations, and a time mask
+    aug_cfg = cfg.replace(augment=dataclasses.replace(
+        cfg.augment, mix_up_ratio=0.6, time_mask=True, freq_mask=True, freq_shift=True))
+    aug_step = make_train_step(model, wd, aug_cfg, state.optimizer, device=dev)
+    reset_launch_counts()  # the augmented path: counts from here ...
+    aug = torch.stack([aug_step(batch, gen)["loss"] for _ in range(AUGMENT_STEPS)]).cpu()
+    counts = launch_counts()  # ... to here
+    assert torch.isfinite(aug).all() and counts["K1"] == AUGMENT_STEPS, (aug, counts)
+    print(f"augmented step (mixup 0.6, time and frequency masks, frequency shift): losses "
+          f"{aug.tolist()}, K1 {counts['K1']} launches in {AUGMENT_STEPS} steps ({card})")
+    return {"launches": TRAIN_STEPS, "err": k1_err, "shape": list(cost.shape), "timing": timing}
+
+
 # --------------------------------------------------------------- predict
 
 
@@ -910,9 +1124,11 @@ def profile(fn, calls: int, label: str, card: str, file_name: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): an operator's row repeats
-    # the device time of the kernels it launched
+    # the device time of the kernels it launched, and a user annotation on the
+    # device's timeline (the optimizer's step) spans kernels already counted
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     print(f"profiled {calls} x {label}: device busy {busy_us / calls / 1e3:.3f} ms each in "
           f"{sum(r[2] for r in rows) // calls} kernels and copies, "
@@ -950,12 +1166,7 @@ def split_eval_step(model, cfg, batch_cpu, valid, card: str) -> None:
 
 def first_step_cost(step, batch, valid) -> tuple:
     """One (warm-up) step with the Hungarian cost it hands to ``lsap`` kept."""
-    seen = []
-    matcher.lsap = lambda cost: (seen.append(cost.clone()), hungarian.lsap(cost))[1]
-    res = step(batch, valid)
-    matcher.lsap = hungarian.lsap
-    torch.cuda.synchronize()
-    (cost,) = seen
+    res, (cost,) = with_lsap_costs(lambda: step(batch, valid))
     return res, cost
 
 
@@ -993,6 +1204,9 @@ def main() -> None:
     worst = small_long_predict(dev, SEED)
     print(f"tiny f32 long predict (K4 on the card, non-flash path on the CPU): ok, "
           f"max |score or box difference| {worst:.3g}")
+    worst = small_train_step(dev, SEED)
+    print(f"tiny f32 train step, 2 steps, card vs CPU: ok, max |loss or parameter difference| "
+          f"{worst:.3g}")
 
     # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
@@ -1039,6 +1253,11 @@ def main() -> None:
     split_eval_step(model, cfg, batches[0], valid, card)
     profile(lambda: step(batches[0], valid), 3, "eval step", card, "eval_step_profile.txt")
     del model, step
+
+    # 4b. the flagship train step, then the fine-tune and augmented steps
+    train = run_train_phases(dev, card, latency, clock_hz)
+    errs["K1"] = max(errs["K1"], train["err"])
+    torch.cuda.empty_cache()
 
     # 5. long-clip predict at the flagship's width
     long_cfg = long_config(cfg, LONG_SECONDS, int(LONG_SECONDS * 50), num_queries=40,
@@ -1114,6 +1333,10 @@ def main() -> None:
          "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
          "shape": shapes["K1"], "launches": launches["K1"], "variant": "warp, 1 column a lane",
          "max_abs_err": errs["K1"], **timing["K1"]},
+        {"name": "K1 lsap_lane train step", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": train["shape"], "launches": train["launches"],
+         "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **train["timing"]},
         {"name": "K2 lsap_block", "source": hungarian_src,
          "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
          "shape": shapes["K2"], "launches": launches["K2"],

@@ -1,10 +1,13 @@
 """Set-prediction criterion over dense targets (plain functions on tensors).
 
-Counterpart of the JAX package's ``models/criterion.py`` for the paths the
-evaluation step takes: the joint Hungarian solve over the final and aux
-decoder layers, the classification, box, cardinality and audio-tag losses,
-and the loss-weight dict.  ``num_boxes`` is clamped to >= 1 as in the JAX
-package.  The patch-feature loss waits for SP-SEDT.
+Counterpart of the JAX package's ``models/criterion.py``: the Hungarian
+matching of the final and aux decoder layers (one joint solve for plain
+matching; under ``fine_tune`` or ``normalize`` one solve for the final layer
+and one for all aux layers), the classification, box, cardinality and
+audio-tag losses, and the loss-weight dict.  Gradients flow from the losses
+into the logits, boxes and audio tags, never through the matching.
+``num_boxes`` is clamped to >= 1 as in the JAX package.  The patch-feature
+loss waits for SP-SEDT.
 """
 from __future__ import annotations
 
@@ -201,6 +204,17 @@ def _repeat(targets: DenseTargets, n: int) -> DenseTargets:
     return DenseTargets(*(t.repeat((n,) + (1,) * (t.dim() - 1)) for t in targets))
 
 
+def _match_layers(logits: torch.Tensor, boxes: torch.Tensor, targets: DenseTargets,
+                  kw: Dict) -> MatchResult:
+    """Plain matching of L stacked layers ([L, B, ..]) in ONE batched LSAP
+    solve of L x B problems; the result has leading dims [L, B]."""
+    n_layers, b = logits.shape[:2]
+    t = _repeat(targets, n_layers)
+    m = match(logits.flatten(0, 1), boxes.flatten(0, 1), t.labels, t.boxes,
+              t.box_valid, t.ratio, **kw)
+    return MatchResult(*(x.reshape((n_layers, b) + x.shape[1:]) for x in m))
+
+
 def joint_match(
     outputs: Dict[str, torch.Tensor],
     targets: DenseTargets,
@@ -215,12 +229,7 @@ def joint_match(
         m = match(outputs["pred_logits"], outputs["pred_boxes"], targets.labels,
                   targets.boxes, targets.box_valid, targets.ratio, **kw)
         return m, None
-    logits, boxes = _stack_layers(outputs)
-    n_layers, b = logits.shape[:2]
-    t = _repeat(targets, n_layers)
-    m = match(logits.flatten(0, 1), boxes.flatten(0, 1), t.labels, t.boxes,
-              t.box_valid, t.ratio, **kw)
-    m = MatchResult(*(x.reshape((n_layers, b) + x.shape[1:]) for x in m))
+    m = _match_layers(*_stack_layers(outputs), targets, kw)
     return MatchResult(*(x[0] for x in m)), MatchResult(*(x[1:] for x in m))
 
 
@@ -234,12 +243,16 @@ def set_criterion(
     fine_tune: bool = False,
     normalize: bool = False,
     fl: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[MatchResult]]:
     """Full criterion; returns (losses, final-layer match result).
 
     With aux outputs and plain matching the final and aux layers share one
-    solve (:func:`joint_match`).  The final layer's ``num_boxes`` normalises
-    the aux layers too.
+    solve (:func:`joint_match`).  Under ``fine_tune`` or ``normalize`` the
+    final layer is matched alone (its relaxed stage draws from
+    ``generator``) and the aux layers, matched plainly as in the JAX
+    package, share a second solve.  The final layer's ``num_boxes``
+    normalises the aux layers too.
     """
     b = outputs["pred_boxes"].shape[0]
     dev = outputs["pred_boxes"].device
@@ -262,8 +275,12 @@ def set_criterion(
             mres = match(
                 outputs["pred_logits"], outputs["pred_boxes"], targets.labels,
                 targets.boxes, targets.box_valid, targets.ratio,
-                fine_tune=fine_tune, normalize=normalize, **match_kw,
+                fine_tune=fine_tune, normalize=normalize, epsilon=lcfg.epsilon,
+                alpha=lcfg.alpha, generator=generator, **match_kw,
             )
+            if has_aux:
+                aux_mres = _match_layers(outputs["aux_logits"], outputs["aux_boxes"],
+                                         targets, match_kw)
         num_boxes = (mres.num_boxes * strong).sum().clamp(min=1.0)
         lc, cerr = loss_labels(
             outputs["pred_logits"], targets, mres, strong, num_boxes,
@@ -283,11 +300,7 @@ def set_criterion(
     if has_aux and strong_mask is not None:
         for i in range(outputs["aux_logits"].shape[0]):
             logits_a, boxes_a = outputs["aux_logits"][i], outputs["aux_boxes"][i]
-            if aux_mres is not None:
-                m = MatchResult(*(x[i] for x in aux_mres))
-            else:
-                m = match(logits_a, boxes_a, targets.labels, targets.boxes,
-                          targets.box_valid, targets.ratio, **match_kw)
+            m = MatchResult(*(x[i] for x in aux_mres))
             lc, _ = loss_labels(
                 logits_a, targets, m, strong, num_boxes,
                 num_classes, lcfg.eos_coef, fl, lcfg.alpha_fl, lcfg.gamma_fl,

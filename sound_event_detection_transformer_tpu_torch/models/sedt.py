@@ -1,18 +1,23 @@
 """SEDT model: backbone + transformer + set-prediction heads.
 
 Counterpart of the JAX package's ``models/sedt.py``.  ``forward(feats
-[B, T, F, 1], pad_mask [B, T])`` returns the JAX package's output dict::
+[B, T, F, 1], pad_mask [B, T], deterministic, generator)`` returns the JAX
+package's output dict::
 
     {"pred_logits": [B, Q, C+1], "pred_boxes": [B, Q, 2],
      "at": [B, C] (dec_at), "at_p": [B, C] (pooling),
      "aux_logits": [A, B, Q, C+1], "aux_boxes": [A, B, Q, 2] (aux_loss)}
 
 With ``compute_dtype`` bfloat16 the backbone and transformer run under bf16
-autocast while parameters stay f32; the heads always run in f32.
+autocast while parameters stay f32; the heads always run in f32.  Dropout is
+decided by ``deterministic`` alone, never by ``module.training``: with
+``deterministic=False`` the transformer drops at ``cfg.dropout`` with masks
+drawn from ``generator``.
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -56,7 +61,7 @@ def downsample_mask(pad_mask: torch.Tensor, t_out: int, f_out: int) -> torch.Ten
 
 
 class SEDT(nn.Module):
-    """Sound Event Detection Transformer (evaluation forward)."""
+    """Sound Event Detection Transformer."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -68,6 +73,7 @@ class SEDT(nn.Module):
             num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers,
             dim_feedforward=cfg.dim_feedforward,
+            dropout=cfg.dropout,
             pre_norm=cfg.pre_norm,
         )
         n_queries = cfg.num_queries + 1 if cfg.dec_at else cfg.num_queries
@@ -87,7 +93,8 @@ class SEDT(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=getattr(torch, self.cfg.compute_dtype))
 
-    def encode(self, feats: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def encode(self, feats: torch.Tensor, pad_mask: torch.Tensor, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Backbone -> flatten -> transformer; returns hs [L, B, Q, D] in f32."""
         cfg = self.cfg
         with self._autocast(feats.device):
@@ -106,12 +113,14 @@ class SEDT(nn.Module):
         key_bias = make_key_padding_bias(mask3.reshape(b, tp * fp))
         queries = self.query_embed.weight[None].expand(b, -1, -1)
         with self._autocast(feats.device):
-            hs, _ = self.transformer(src, pos, key_bias, queries)
+            hs, _ = self.transformer(src, pos, key_bias, queries,
+                                     deterministic=deterministic, generator=generator)
         return hs.float()
 
-    def forward(self, feats: torch.Tensor, pad_mask: torch.Tensor):
+    def forward(self, feats: torch.Tensor, pad_mask: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
-        hs = self.encode(feats, pad_mask)
+        hs = self.encode(feats, pad_mask, deterministic, generator)
         out = {}
         if cfg.dec_at:
             hs_events = hs[:, :, 1:, :]  # slot 0 is the audio-tag query

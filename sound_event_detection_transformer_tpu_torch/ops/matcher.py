@@ -1,10 +1,9 @@
 """Batched Hungarian matching between queries and dense targets.
 
-Counterpart of the JAX package's ``ops/matcher.py`` for the evaluation path:
-the matching cost, the LSAP dispatch to kernels K1 and K2
-(:mod:`.hungarian`), the decoding of assignments into query/target maps and
-the per-query loss coefficients.  The relaxed fine-tune matching waits for
-the training slice.
+Counterpart of the JAX package's ``ops/matcher.py``: the matching cost, the
+LSAP dispatch to kernels K1 and K2 (:mod:`.hungarian`), the decoding of
+assignments into query/target maps, the relaxed second stage of the
+fine-tune matching and the per-query loss coefficients.
 """
 from __future__ import annotations
 
@@ -124,6 +123,36 @@ def assign(cost: torch.Tensor, tgt_valid: torch.Tensor):
     return (tgt_for_query.int(), query_matched, query_for_tgt.int(), tgt_matched)
 
 
+def relaxed_assign(
+    cost_loc: torch.Tensor,  # [B, Q, M] location-only cost (bbox + giou)
+    tgt_valid: torch.Tensor,  # [B, M]
+    tgt_for_query: torch.Tensor,  # [B, Q]
+    query_matched: torch.Tensor,  # [B, Q]
+    epsilon: float,
+    alpha: float,
+    rnd: torch.Tensor,  # [B, Q] uniform draws in [0, 1)
+):
+    """Second-stage matching of the fine-tune phase.
+
+    Queries whose best location cost is below ``epsilon`` are reserved.  A
+    Hungarian-matched query stays matched only if reserved; an unmatched
+    reserved query joins its nearest target when its draw passes
+    ``rnd <= alpha * num_gt / Q``.  Returns (tgt_for_query, query_matched).
+    """
+    q = cost_loc.shape[1]
+    masked = torch.where(tgt_valid[:, None, :], cost_loc, INF)
+    best_cost, nearest_tgt = masked.min(dim=-1)  # [B, Q]; the first of equal minima
+    num_gt = tgt_valid.sum(dim=-1).float()  # [B]
+    reserved = best_cost < epsilon
+    keep_matched = query_matched & reserved
+    extra_pool = reserved & ~query_matched
+    keep_prob = (alpha * num_gt / q)[:, None]
+    extra_kept = extra_pool & (rnd <= keep_prob)
+    new_tgt = torch.where(keep_matched, tgt_for_query.long(),
+                          torch.where(extra_kept, nearest_tgt, -1))
+    return new_tgt.int(), keep_matched | extra_kept
+
+
 def compute_coef(
     tgt_for_query: torch.Tensor,  # [B, Q]
     query_matched: torch.Tensor,  # [B, Q]
@@ -160,18 +189,30 @@ def match(
     gamma_fl: float = 1.0,
     fine_tune: bool = False,
     normalize: bool = False,
+    epsilon: float = 0.0,
+    alpha: float = 100.0,
+    generator: Optional[torch.Generator] = None,
+    rnd: Optional[torch.Tensor] = None,
 ) -> MatchResult:
-    """Cost build + LSAP + coefficients (no gradient flows through it)."""
-    if fine_tune:
-        raise NotImplementedError(
-            "match(fine_tune=True) needs relaxed_assign, which lands with the training slice"
-        )
+    """Cost build + LSAP (+ the relaxed stage under ``fine_tune``) +
+    coefficients; no gradient flows through it.  The relaxed stage's [B, Q]
+    uniform draws are ``rnd`` if given, else drawn from ``generator``."""
     with torch.no_grad():
         cost = compute_cost_matrix(
             pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
             cost_class, cost_bbox, cost_giou, focal, alpha_fl, gamma_fl,
         )
         tgt_for_query, query_matched, query_for_tgt, tgt_matched = assign(cost, tgt_valid)
+        if fine_tune:
+            pred_se = box_ops.box_cl_to_se(pred_boxes)
+            tgt_se = box_ops.box_cl_to_se(tgt_boxes)
+            cost_loc = (cost_bbox * box_ops.pairwise_l1_se(pred_se, tgt_se)
+                        + cost_giou * -box_ops.generalized_box_iou(pred_se, tgt_se))
+            if rnd is None:
+                rnd = torch.rand(tgt_for_query.shape, generator=generator,
+                                 device=pred_boxes.device)
+            tgt_for_query, query_matched = relaxed_assign(
+                cost_loc, tgt_valid, tgt_for_query, query_matched, epsilon, alpha, rnd)
         coef = compute_coef(tgt_for_query, query_matched, tgt_ratio, normalize,
                             tgt_labels.shape[-1])
     return MatchResult(

@@ -3,7 +3,9 @@
 ``from_flax(params, frozen)`` takes the ``params`` and ``frozen`` trees as
 nested dicts of numpy arrays and returns a ``state_dict`` for the port's
 modules, whose names mirror the flax tree.  Load it with ``strict=True`` so
-that a missing or unused key fails.
+that a missing or unused key fails.  A gradient tree has the ``params``
+tree's layout, so ``from_flax(grads, {})`` maps it onto the port's parameter
+names and layouts too.
 """
 from __future__ import annotations
 

@@ -13,17 +13,24 @@ otherwise.  Kernel
 K4 (both variants, and which one ran) against its plain blockwise version:
 1e-5 on f32 inputs (the sums run in another order), one bf16 rounding (1e-2)
 on bf16 inputs.  The tiny f32
-evaluation step and long-clip predict on the card against the CPU, TF32 off,
-to 1e-3, since the two devices sum convolutions and matmuls in a different
-order.
+evaluation step, long-clip predict and two train steps on the card against
+the CPU, TF32 off, to 1e-3, since the two devices sum convolutions and
+matmuls in a different order.  Dropout on the card from an explicit CUDA
+generator: the same seed gives the same mask, and the keep share lies
+within 5 standard deviations of its binomial share.  The train step
+launches K1 once (plain matching) or twice (fine-tune matching: the final
+layer, then the aux layers).
 """
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from sound_event_detection_transformer_tpu_torch.engine import init_train_state, make_train_step
+from sound_event_detection_transformer_tpu_torch.models import build_model
 from sound_event_detection_transformer_tpu_torch.ops import flash_attention as fa
 from sound_event_detection_transformer_tpu_torch.ops import hungarian
+from sound_event_detection_transformer_tpu_torch.ops.dropout import dropout
 
 
 @pytest.fixture
@@ -254,3 +261,36 @@ def test_eval_step_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_long_predict_on_card_matches_cpu(cuda):
     chip_smoke.small_long_predict(cuda, seed=1)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    chip_smoke.small_train_step(cuda, seed=1)
+
+
+@pytest.mark.gpu
+def test_dropout_on_the_card_follows_its_generator(cuda):
+    x = torch.ones(1_000_000, device=cuda)
+    gen = lambda s: torch.Generator(device=cuda).manual_seed(s)
+    a, b, c = (dropout(x, 0.1, gen(s), deterministic=False) for s in (3, 3, 4))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    share = float((a != 0).float().mean())
+    assert abs(share - 0.9) < 5 * (0.9 * 0.1 / x.numel()) ** 0.5, share
+    torch.testing.assert_close(a[a != 0], torch.full_like(a[a != 0], 1 / 0.9))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fine_tune,launches", [(False, 1), (True, 2)], ids=["plain", "fine_tune"])
+def test_k1_launches_per_train_step(cuda, fine_tune, launches):
+    cfg = chip_smoke.tiny_train_config()
+    _, batches = chip_smoke.make_batches(cfg, 4, 1, seed=2)
+    model, wd = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(2))
+    state = init_train_state(model, cfg, steps_per_epoch=10)
+    step = make_train_step(model, wd, cfg, state.optimizer, fine_tune=fine_tune, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    step(batches[0], gen)
+    before = hungarian.lsap_lane.launches
+    metrics = step(batches[0], gen)
+    torch.cuda.synchronize()
+    assert hungarian.lsap_lane.launches - before == launches
+    assert torch.isfinite(metrics["loss"]).item()

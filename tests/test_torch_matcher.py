@@ -120,7 +120,68 @@ def test_assign_orientations_match_jax(q, m):
 
 
 def test_fine_tune_waits_for_training_slice():
+    """The relaxed fine-tune matching has landed: ``match(fine_tune=True)``
+    runs, and its draws come from the generator, so a seed fixes them."""
     rng = np.random.RandomState(0)
     args = [torch.from_numpy(x) for x in _problem(rng, 2, 4, 3)]
-    with pytest.raises(NotImplementedError):
-        tmatcher.match(*args, fine_tune=True)
+    kw = dict(fine_tune=True, epsilon=2.0, alpha=0.5)
+    runs = [tmatcher.match(*args, generator=torch.Generator().manual_seed(s), **kw)
+            for s in (1, 1)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def _relaxed_inputs(seed, b=6, q=10, m=8):
+    """A location cost, valid targets and a Hungarian assignment of it."""
+    rng = np.random.RandomState(seed)
+    cost = (rng.randn(b, q, m) * 2).astype(np.float32)
+    valid = rng.rand(b, m) < 0.6
+    valid[:, 0] = True
+    valid[-1] = False  # a clip without targets
+    masked = np.where(valid[:, None, :], cost, jmatcher.BIG).astype(np.float32)
+    t4q, qm, _, _ = (np.asarray(x) for x in jmatcher.assign(jnp.asarray(masked),
+                                                            jnp.asarray(valid)))
+    return cost, valid, t4q, qm
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("epsilon,alpha", [(0.5, 0.8), (1.5, 2.0), (-1.0, 100.0)])
+def test_relaxed_assign_matches_jax_on_its_draws(seed, epsilon, alpha):
+    """alpha * num_gt / Q lands inside [0, 1) for the first two settings, so
+    the draws decide which reserved queries are kept; exact equality."""
+    cost, valid, t4q, qm = _relaxed_inputs(seed)
+    key = jax.random.PRNGKey(seed)
+    want = jmatcher.relaxed_assign(jnp.asarray(cost), jnp.asarray(valid), jnp.asarray(t4q),
+                                   jnp.asarray(qm), epsilon, alpha, key)
+    rnd = torch.from_numpy(np.array(jax.random.uniform(key, qm.shape)))
+    got = tmatcher.relaxed_assign(torch.from_numpy(cost), torch.from_numpy(valid),
+                                  torch.from_numpy(t4q), torch.from_numpy(qm), epsilon, alpha,
+                                  rnd)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_fine_tune_match_matches_jax_on_its_draws(normalize):
+    """The whole fine-tune match (Hungarian, relaxed stage, coefficients) on
+    continuous random costs, which have one optimum, so the pairs compare
+    exactly; coefficients and num_boxes to 1e-6."""
+    rng = np.random.RandomState(3)
+    b, q, m = 6, 10, 8
+    args = _problem(rng, b, q, m)
+    ratio = rng.uniform(0.2, 1.0, (b, m)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    kw = dict(fine_tune=True, normalize=normalize, epsilon=1.0, alpha=1.5)
+    want = jmatcher.match(*(jnp.asarray(x) for x in args), tgt_ratio=jnp.asarray(ratio),
+                          rng=key, **kw)
+    rnd = torch.from_numpy(np.array(jax.random.uniform(key, (b, q))))
+    got = tmatcher.match(*(torch.from_numpy(x) for x in args), tgt_ratio=torch.from_numpy(ratio),
+                         rnd=rnd, **kw)
+    assert int(got.query_matched.sum()) != int(np.asarray(jmatcher.match(
+        *(jnp.asarray(x) for x in args)).query_matched.sum()))  # the relaxed stage acted
+    for name, g, w in zip(tmatcher.MatchResult._fields, got, want):
+        if g.dtype.is_floating_point:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)

@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
-from sound_event_detection_transformer_tpu_torch.engine import make_eval_step
+from sound_event_detection_transformer_tpu_torch.engine import (
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
 from sound_event_detection_transformer_tpu_torch.models import build_model, resolve_device
 from sound_event_detection_transformer_tpu_torch.ops import _build, attention
 from sound_event_detection_transformer_tpu_torch.ops.attention import (
@@ -26,6 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sound_event_detection_transformer_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "sound_event_detection_transformer_tpu"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py",
+                                        ROOT / "bench_torch.py",
                                         ROOT / "tools" / "time_jv_kernels.py"]
 
 
@@ -57,9 +62,11 @@ def test_port_runs_without_loading_jax():
         "torch.set_num_threads(2)\n"
         "from sound_event_detection_transformer_tpu_torch.config import SEDTConfig\n"
         "from sound_event_detection_transformer_tpu_torch.models import build_model\n"
-        "from sound_event_detection_transformer_tpu_torch import predict_cli, train_lib\n"
+        "from sound_event_detection_transformer_tpu_torch import engine, predict_cli, train_lib\n"
+        "from sound_event_detection_transformer_tpu_torch.ops import augment, dropout\n"
+        "from sound_event_detection_transformer_tpu_torch.parallel import optim\n"
         "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
-        "import predict_torch\n"
+        "import bench_torch, predict_torch\n"
         "cfg = SEDTConfig.tiny_test()\n"
         "model, wd = build_model(cfg, device='cpu')\n"
         "m = cfg.model\n"
@@ -84,6 +91,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_step(model, wd, cfg, (1,))
     make_eval_step(model, wd, cfg, (1,), device="cpu")
+    state = init_train_state(model, cfg, steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, wd, cfg, state.optimizer)
+    make_train_step(model, wd, cfg, state.optimizer, device="cpu")
 
 
 def test_bare_cuda_means_the_current_card(monkeypatch):
@@ -98,8 +109,8 @@ def test_bare_cuda_means_the_current_card(monkeypatch):
 def test_flash_dispatch_raises_until_k4_is_ported(monkeypatch):
     """K4 is ported, so the dispatch that used to raise now runs: forced on
     CPU tensors it takes the kernel's plain blockwise version, the automatic
-    rule leaves CPU tensors on the non-flash path, and only attention dropout
-    still waits for the training slice."""
+    rule leaves CPU tensors on the non-flash path, and attention dropout (now
+    ported) stays on the non-flash path and needs a generator."""
     calls = []
     real = attention.flash_attention
     monkeypatch.setattr(attention, "flash_attention",
@@ -113,8 +124,11 @@ def test_flash_dispatch_raises_until_k4_is_ported(monkeypatch):
     plain = scaled_dot_attention(q, k, k)
     assert calls == [FLASH_MIN_SEQ] and plain.shape == (1, 2, 4, 8)
     torch.testing.assert_close(flash, plain, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="generator"):
         scaled_dot_attention(q, k, k, dropout_rate=0.1)
+    dropped = scaled_dot_attention(q, k, k, dropout_rate=0.1,
+                                   generator=torch.Generator().manual_seed(1))
+    assert calls == [FLASH_MIN_SEQ] and dropped.shape == plain.shape
     for path in (PORT / "ops" / "attention.py", PORT / "ops" / "hungarian.py"):
         assert "not ported" not in path.read_text()
 
