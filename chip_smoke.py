@@ -21,10 +21,16 @@ nvcc for sm_90a, all started together), then:
    one tile and ragged, with the keys split over blocks, and a bf16 input on
    an 8- but not 16-byte boundary, which must take the f32-core variant;
 3. runs the evaluation step at the tiny f32 geometry, the tiny long-clip
-   predict (528 encoder tokens, so the card takes K4) and two tiny train
-   steps (dropout 0 on the training path), on the CPU and on the card from
-   the same weights, and compares the two (TF32 off, to 1e-3: the losses,
-   and every parameter after each train step);
+   predict (528 encoder tokens, so the card takes K4), two tiny train
+   steps (dropout 0 on the training path), ``train_lib.evaluate`` over 48
+   clips with its feature bank (on weights whose class scores follow the
+   clip, so that F1 and PSDS are not all zero), and the trainer
+   ``run_supervised`` at the tiny size (resnet18, d 64, 1+1 layers, batch 4,
+   16 clips, 2 epochs, dropout 0, no augmentation, no fine-tune epoch), on
+   the CPU and on the card from the same weights, and compares the two (TF32
+   off, to 1e-3: the losses, every parameter after each train step, each
+   epoch's train and validation loss means; the evaluation's F1 and PSDS
+   exactly, every F1 of the trainer to 1e-3);
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
@@ -38,6 +44,20 @@ nvcc for sm_90a, all started together), then:
    the fine-tune step (``fine_tune``, lr 1e-5: K1 twice a step, at
    [64,10,20] and [128,10,20]) and the augmented step (the DCASE recipe's
    mixup 0.6, frequency mask and shift, and a time mask);
+4c. drives the supervised trainer at the flagship's widths through
+   ``cli.sedt_args`` and ``train_lib.run_supervised`` (``FLAGSHIP_TRAINER``:
+   URBAN-SED ``--synthetic_smoke``, 128 x 64 clips, 512 training clips at
+   batch 64, 3 epochs with the fine-tune stage from epoch 2, evaluation every
+   epoch over 128 validation clips, fusion strategies 1-3, the final test
+   with PSDS and ROC curves, a checkpoint every epoch): every epoch's loss
+   finite, the final test of each strategy, the feature bank in use, each
+   best checkpoint loading back into the model, the ROC CSVs written, and K1
+   launched exactly as the arguments call for (32 times in train steps, 18
+   in eval steps) and K2, K3 and K4 never; it prints each epoch's wall time,
+   ms/step and clips/s, the evaluation's time in eval steps, host decode,
+   metrics and PSDS, and the checkpoint I/O, times K1 on the cost of the
+   run's first train step, then runs the trainer once more for one epoch and
+   profiles that epoch's train steps into ``chiprun_out/trainer_profile.txt``;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -58,8 +78,8 @@ nvcc for sm_90a, all started together), then:
    really took; K4: its exponentials at an assumed special-function rate),
    times K1 also at every shape of ``K1_SHAPES`` on seeded costs, and for K4
    times the library call ``F.scaled_dot_product_attention``;
-8. profiles the 10 s evaluation step, the train step and the long predict
-   into ``chiprun_out/``.
+8. profiles the 10 s evaluation step, the train step, a trainer epoch and
+   the long predict into ``chiprun_out/``.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -72,6 +92,7 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -84,9 +105,12 @@ from scipy.optimize import linear_sum_assignment
 from torch.utils.flop_counter import FlopCounterMode
 
 from bench_torch import flagship_config, synthetic_batch
+from sound_event_detection_transformer_tpu_torch import train_lib
+from sound_event_detection_transformer_tpu_torch.cli import sedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
-from sound_event_detection_transformer_tpu_torch.data.dataset import collate
+from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
+from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
 from sound_event_detection_transformer_tpu_torch.data.scaler import Scaler
 from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
 from sound_event_detection_transformer_tpu_torch.engine import (
@@ -110,6 +134,7 @@ from sound_event_detection_transformer_tpu_torch.ops import (
 )
 from sound_event_detection_transformer_tpu_torch.ops.frontend import make_frontend_fn
 from sound_event_detection_transformer_tpu_torch.predict_cli import make_infer
+from sound_event_detection_transformer_tpu_torch.utils.checkpoint import load_checkpoint
 
 # One H100 SXM at its 700 W limit (NVIDIA data sheet): device memory rate, the
 # f32 rate outside the tensor cores (the type the Hungarian kernels compute
@@ -159,6 +184,21 @@ AUGMENT_STEPS = 2
 LONG_STEPS = 5  # timed long-clip evaluation steps
 LONG_FORWARDS = 3  # timed long-clip predict batches
 SEED = 0
+# the trainers: the tiny one on the card against the CPU, and the flagship's
+# widths on --synthetic_smoke's 128 x 64 clips (8 steps an epoch, 2 plain
+# epochs and 1 fine-tune epoch, 128 validation clips in 2 batches)
+TRAIN_ROOT = "build/chip_train"
+TINY_TRAINER = ["--dataname", "urbansed", "--synthetic_smoke", "--smoke_clips", "16",
+                "--batch_size", "4", "--backbone", "resnet18", "--hidden_dim", "64",
+                "--enc_layers", "1", "--dec_layers", "1", "--dim_feedforward", "128",
+                "--epochs", "2", "--epochs_ls", "10", "--dropout", "0", "--compute_dtype",
+                "float32", "--dec_at", "--fusion_strategy", "1", "2", "3", "--log",
+                "--info", "tiny"]
+FLAGSHIP_TRAINER = ["--dataname", "urbansed", "--synthetic_smoke", "--smoke_clips", "512",
+                    "--batch_size", "64", "--dec_at", "--epochs", "3", "--epochs_ls", "2",
+                    "--eval_interval", "1", "--fusion_strategy", "1", "2", "3", "--psds",
+                    "--roc_curves", TRAIN_ROOT + "/roc/", "--checkpoint_epochs", "1",
+                    "--exp_root", TRAIN_ROOT, "--log"]  # --log: stdout is not teed to ./log
 SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
 PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
 
@@ -820,6 +860,118 @@ def small_train_step(dev: torch.device, seed: int, steps: int = 2) -> float:
     return worst
 
 
+def clip_following_weights(cfg: SEDTConfig, ds, seed: int, batch: int) -> dict:
+    """Seeded tiny weights under which ``evaluate`` detects events.
+
+    At random weights every query of a clip leaves the decoder with the same
+    output, and its mean over the clips outweighs how it varies from clip to
+    clip: one class wins in every clip, and PSDS is zero.  So three biases
+    move as in ``tests/test_torch_evaluate.py`` (the no-object logit down by
+    3, the audio-tag logits up by 2, the box-length logit down by 1), and the
+    class head is centred on its mean input over ``ds`` and scaled by 20, so
+    the class scores follow the clip."""
+    model, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    head = model.class_embed
+    inputs = []
+    hook = head.register_forward_hook(lambda mod, x, out: inputs.append(x[0][-1].flatten(0, -2)))
+    with torch.no_grad():
+        for b in batch_iterator(ds, batch, cfg.model.max_events, cfg.features.max_len_seconds):
+            model(b.feats, b.pad_mask)
+        hook.remove()
+        head.bias[-1] -= 3.0
+        model.weak_class_embed.bias += 2.0
+        model.bbox_embed.layer2.bias[1] -= 1.0
+        head.bias -= 20.0 * head.weight @ torch.cat(inputs).mean(0)
+        head.weight *= 20.0
+    return model.state_dict()
+
+
+def small_evaluate(dev: torch.device, seed: int) -> float:
+    """``train_lib.evaluate`` at the tiny f32 geometry on the card (its
+    feature bank there) against the CPU, TF32 off, on 48 clips at batch 4
+    (``clip_following_weights``): the same event F1 per strategy and PSDS,
+    with at least one F1 and one PSDS value non-zero, and the loss means to
+    1e-3.  The exact comparison needs every score (and audio tag) of the CPU
+    run more than 1e-5 from each decode threshold, unless it is the
+    threshold itself; the two devices' scores differ by about 1e-6.  Returns
+    the largest loss-mean difference."""
+    cfg = SEDTConfig.tiny_test()
+    m = cfg.model
+    seconds = cfg.features.max_len_seconds
+    enc = BoxEncoder(list(cfg.data.classes), seconds)
+    ds = SyntheticDataset(48, cfg.data.classes, m.max_frames, m.n_mels, enc.encode_strong_df,
+                          max_events=3, seconds=seconds, seed=seed + 1)
+    weights = clip_following_weights(cfg, ds, seed, 4)
+    thresholds = train_lib.PSDS_THRESHOLDS
+    runs = {}
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            model, wd = build_model(cfg, device=d)
+            model.load_state_dict(weights, strict=True)
+            step = make_eval_step(model, wd, cfg, FUSION, device=d)
+            scores = []
+
+            def recorded(batch, valid, step=step, scores=scores):
+                res = step(batch, valid)
+                scores.extend(res[f"pp_{k}"].scores.cpu() for k in FUSION)
+                scores.append(res["at"].cpu())
+                return res
+
+            recorded.device = step.device
+            res = train_lib.evaluate(
+                recorded, ds, cfg, enc, ds.ref_rows(), FUSION, cal_seg=True, cal_clip=True,
+                batch_size=4, psds_thresholds=thresholds, weight_dict=wd, bank=FeatureBank(ds, d))
+            runs[d.type] = (res, torch.cat([t.flatten() for t in scores]).numpy())
+    (ref, ref_scores), (got, _) = runs["cpu"], runs[dev.type]
+    for t in (0.5,) + thresholds:
+        near = (np.abs(ref_scores - t) < 1e-5) & (ref_scores != np.float32(t))
+        assert not near.any(), f"a score within 1e-5 of the threshold {t}: {ref_scores[near]}"
+    assert max(ref.f1.values()) > 0 and max(max(v) for v in ref.psds.values()) > 0, (
+        f"F1 {ref.f1}, PSDS {ref.psds}: a comparison of zeros proves nothing")
+    assert got.f1 == ref.f1, (got.f1, ref.f1)
+    for k in FUSION:
+        assert np.allclose(got.psds[k], ref.psds[k], rtol=0, atol=1e-9), k
+    worst = 0.0
+    for k, r in ref.loss_means.items():
+        g = got.loss_means[k]
+        assert np.isclose(g, r, rtol=1e-3, atol=1e-3), (k, g, r)
+        worst = max(worst, abs(float(g - r)))
+    print(f"tiny evaluate, card vs CPU: F1 {got.f1}, PSDS {got.psds}")
+    return worst
+
+
+def small_trainer(dev: torch.device) -> float:
+    """``run_supervised`` at the tiny size (``TINY_TRAINER``: resnet18, d 64,
+    1+1 layers, batch 4, 16 clips, 2 epochs, dropout 0, no augmentation,
+    no fine-tune epoch, so no random draw differs) on the card and on the
+    CPU, TF32 off: each epoch's train and validation loss means, and the F1
+    of every strategy in every evaluation, to 1e-3.  Returns the largest
+    difference."""
+    runs = {}
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            root = Path(TRAIN_ROOT + "_tiny") / d.type
+            shutil.rmtree(root, ignore_errors=True)
+            runs[d.type] = train_lib.run_supervised(
+                sedt_args(TINY_TRAINER + ["--exp_root", str(root)]), device=d)
+    ref, got = runs["cpu"], runs[dev.type]
+    pairs = []
+    for r, g in zip(ref.epochs, got.epochs, strict=True):
+        for key in ("loss_means", "val_loss_means", "val_f1"):
+            pairs += [(f"epoch {r['epoch']} {key} {k}", g[key][k], v) for k, v in r[key].items()]
+    for r, g in zip(ref.final, got.final, strict=True):
+        pairs += [(f"final {r['fusion_strategy']} {k}", g[k], r[k])
+                  for k in ("valid_f1", "eval_f1")]
+    worst = 0.0
+    for name, g, r in pairs:
+        assert np.isfinite(g) and np.isclose(g, r, rtol=1e-3, atol=1e-3), (name, g, r)
+        worst = max(worst, abs(float(g) - float(r)))
+    f1s = [v for name, v, _ in pairs if "f1" in name]
+    print(f"tiny trainer, card vs CPU: {len(pairs)} values, F1 from {min(f1s):.4f} to "
+          f"{max(f1s):.4f}")
+    return worst
+
+
 def with_lsap_costs(call) -> tuple:
     """``call()``, with the cost of every ``lsap`` call it makes kept:
     (what ``call`` returns, [costs])."""
@@ -970,6 +1122,138 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
     print(f"augmented step (mixup 0.6, time and frequency masks, frequency shift): losses "
           f"{aug.tolist()}, K1 {counts['K1']} launches in {AUGMENT_STEPS} steps ({card})")
     return {"launches": TRAIN_STEPS, "err": k1_err, "shape": list(cost.shape), "timing": timing}
+
+
+# --------------------------------------------------------------- trainer
+
+
+def trainer_launches(args) -> dict:
+    """K1's launches that the trainer's arguments call for: one per plain
+    train step, two per fine-tune step, one per eval batch (the epochs'
+    evaluations, then validation and eval for each strategy's final test)."""
+    steps = args.smoke_clips // args.batch_size
+    plain = min(args.epochs, args.epochs_ls)
+    evals = args.epochs // args.eval_interval + 2 * len(args.fusion_strategy)
+    eval_batches = -(-max(8, args.smoke_clips // 4) // args.batch_size)
+    return {"train": steps * plain + 2 * steps * (args.epochs - plain),
+            "eval": evals * eval_batches}
+
+
+def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: float) -> dict:
+    """Phase 4c: the supervised trainer at the flagship's widths through
+    ``cli.sedt_args`` and ``train_lib.run_supervised``; returns K1's launches,
+    parity error and timing on the cost of the run's first train step, for
+    the ``kernels`` line.  Then one more run of one epoch, whose train epoch
+    is profiled."""
+    args = sedt_args(FLAGSHIP_TRAINER)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)  # every checkpoint checked is this run's
+    want = trainer_launches(args)
+    eval_launches = []
+    real_evaluate = train_lib.evaluate
+
+    def evaluate(*a, **kw):  # counts the eval steps' K1 launches apart
+        before = hungarian.lsap_lane.launches
+        out = real_evaluate(*a, **kw)
+        eval_launches.append(hungarian.lsap_lane.launches - before)
+        return out
+
+    train_lib.evaluate = evaluate
+    try:
+        reset_launch_counts()  # the main path: counts from here ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, costs = with_lsap_costs(lambda: train_lib.run_supervised(args, device=dev))
+        wall_s = time.perf_counter() - t0
+        counts = launch_counts()  # ... to here
+    finally:
+        train_lib.evaluate = real_evaluate
+    k1_eval = sum(eval_launches)
+    k1_train = counts["K1"] - k1_eval
+    assert (k1_train, k1_eval) == (want["train"], want["eval"]), (
+        f"K1 launched {k1_train} times in train steps and {k1_eval} in eval steps, "
+        f"not {want['train']} and {want['eval']}")
+    assert counts["K2"] == counts["K3"] == counts["K4"] == 0, counts
+    epochs = result.epochs
+    assert [e["epoch"] for e in epochs] == list(range(args.epochs)), epochs
+    assert all(np.isfinite(e["loss"]) for e in epochs), [e["loss"] for e in epochs]
+    assert [e["fine_tune"] for e in epochs] == [e >= args.epochs_ls for e in range(args.epochs)]
+    assert set(result.f1) == {args.fusion_strategy[-1]} and np.isfinite(list(result.f1.values())[0])
+    assert [r["fusion_strategy"] for r in result.final] == list(args.fusion_strategy)
+    assert all(set(e["val_f1"]) == set(args.fusion_strategy) for e in epochs)
+    assert result.bank, "the trainer did not hold its features in a bank"
+    cfg = train_lib.args_to_config(args)
+    model, _ = build_model(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    for m in args.fusion_strategy:
+        path = Path(result.model_dir) / f"{args.info}_{m}_best"
+        assert path.is_file(), path
+        model.load_state_dict(load_checkpoint(str(path))["model"], strict=True)
+    del model
+    rocs = [Path(TRAIN_ROOT) / "roc" / f"psds_roc_{t}.csv" for t in ("ct0_st0", "ct1_st0", "ct0_st1")]
+    assert all(p.is_file() and p.stat().st_size > 0 for p in rocs), rocs
+
+    batch = args.batch_size
+    print(f"trainer: {describe(cfg, batch, n_params)}, {args.smoke_clips} training clips, {len(epochs)} epochs "
+          f"(fine-tune from epoch {args.epochs_ls}), {wall_s:.3f} s in all ({card})")
+    print(f"trainer K1 launches: {k1_train} in train steps, {k1_eval} in eval steps "
+          f"({counts['K1']} in all); K2 {counts['K2']}, K3 {counts['K3']}, K4 {counts['K4']}")
+    ckpt_s = 0.0
+    for e in epochs:
+        ms_step = e["train_s"] / e["steps"] * 1e3
+        t = e["eval_timings"]
+        ckpt_s += e.get("checkpoint_s", 0.0)
+        print(f"trainer epoch {e['epoch']}{' (fine-tune)' if e['fine_tune'] else ''}"
+              f"{' (cuDNN first calls)' if e['epoch'] == 0 else ''}: loss {e['loss']:.4f}, train "
+              f"{e['train_s']:.3f} s for {e['steps']} steps = {ms_step:.3f} ms/step, "
+              f"{batch * e['steps'] / e['train_s']:.1f} clips/s; eval steps "
+              f"{t['eval_steps_s'] * 1e3:.3f} ms for {t['batches']} batches "
+              f"({t['eval_steps_s'] / t['batches'] * 1e3:.3f} ms/batch), host decode "
+              f"{t['decode_s'] * 1e3:.3f} ms, metrics {t['metrics_s'] * 1e3:.3f} ms; checkpoint "
+              f"I/O {e.get('checkpoint_s', 0.0):.3f} s; F1 {e['val_f1']} ({card})")
+    for r in result.final:
+        v, t = r["valid_timings"], r["eval_timings"]
+        ckpt_s += r.get("checkpoint_s", 0.0)
+        print(f"trainer final test, strategy {r['fusion_strategy']}: validation eval steps "
+              f"{v['eval_steps_s'] * 1e3:.3f} ms, decode {v['decode_s'] * 1e3:.3f} ms, metrics "
+              f"{v['metrics_s'] * 1e3:.3f} ms; eval set eval steps {t['eval_steps_s'] * 1e3:.3f} "
+              f"ms, decode {t['decode_s'] * 1e3:.3f} ms, metrics {t['metrics_s'] * 1e3:.3f} ms, "
+              f"PSDS {t['psds_s'] * 1e3:.3f} ms (scores {r['psds'][r['fusion_strategy']]}); "
+              f"checkpoint load {r.get('checkpoint_s', 0.0):.3f} s; F1 {r['valid_f1']:.4f} / "
+              f"{r['eval_f1']:.4f} ({card})")
+    steady = [e for e in epochs[1:] if not e["fine_tune"]]
+    if steady:
+        e = steady[0]
+        print(f"trainer steady plain epoch: {e['train_s'] / e['steps'] * 1e3:.3f} ms/step, "
+              f"{batch * e['steps'] / e['train_s']:.1f} clips/s; checkpoint I/O {ckpt_s:.3f} s "
+              f"in all ({card})")
+
+    cost = costs[0]  # the first train step's
+    assert cost.shape == (cfg.model.dec_layers * batch, cfg.model.num_queries,
+                          cfg.model.max_events), cost.shape
+    err = k1_against_references(cost.cpu().numpy(), dev, "the trainer's own cost")
+    timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5, latency,
+                     clock_hz)
+
+    # one more run of one epoch (cuDNN and the allocator warm), its train
+    # epoch under the profiler
+    real_epoch = train_lib.train_one_epoch
+    steps = args.smoke_clips // batch
+
+    def profiled_epoch(*a, **kw):
+        out = []
+        profile(lambda: out.append(real_epoch(*a, **kw)), 1, f"trainer epoch ({steps} steps)",
+                card, "trainer_profile.txt")
+        return out[0]
+
+    root = TRAIN_ROOT + "_profiled"
+    shutil.rmtree(root, ignore_errors=True)
+    train_lib.train_one_epoch = profiled_epoch
+    try:
+        train_lib.run_supervised(sedt_args(FLAGSHIP_TRAINER + [
+            "--epochs", "1", "--exp_root", root, "--roc_curves", root + "/roc/"]), device=dev)
+    finally:
+        train_lib.train_one_epoch = real_epoch
+    return {"launches": counts["K1"], "err": err, "shape": list(cost.shape), "timing": timing}
 
 
 # --------------------------------------------------------------- predict
@@ -1207,6 +1491,11 @@ def main() -> None:
     worst = small_train_step(dev, SEED)
     print(f"tiny f32 train step, 2 steps, card vs CPU: ok, max |loss or parameter difference| "
           f"{worst:.3g}")
+    worst = small_evaluate(dev, SEED)
+    print(f"tiny f32 evaluate, card vs CPU: ok, max |loss mean difference| {worst:.3g}")
+    worst = small_trainer(dev)
+    print(f"tiny f32 trainer, 2 epochs, card vs CPU: ok, max |loss mean or F1 difference| "
+          f"{worst:.3g}")
 
     # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
@@ -1257,6 +1546,11 @@ def main() -> None:
     # 4b. the flagship train step, then the fine-tune and augmented steps
     train = run_train_phases(dev, card, latency, clock_hz)
     errs["K1"] = max(errs["K1"], train["err"])
+    torch.cuda.empty_cache()
+
+    # 4c. the supervised trainer at the flagship's widths
+    trainer = run_trainer_phase(dev, card, latency, clock_hz)
+    errs["K1"] = max(errs["K1"], trainer["err"])
     torch.cuda.empty_cache()
 
     # 5. long-clip predict at the flagship's width
@@ -1337,6 +1631,10 @@ def main() -> None:
          "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
          "shape": train["shape"], "launches": train["launches"],
          "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **train["timing"]},
+        {"name": "K1 lsap_lane trainer", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": trainer["shape"], "launches": trainer["launches"],
+         "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **trainer["timing"]},
         {"name": "K2 lsap_block", "source": hungarian_src,
          "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
          "shape": shapes["K2"], "launches": launches["K2"],

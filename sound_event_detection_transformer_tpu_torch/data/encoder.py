@@ -1,12 +1,16 @@
-"""Box label codec and the bridge to dense targets.
+"""Label codecs and the bridge to dense targets.
 
-Counterpart of the JAX package's ``data/encoder.py`` for the evaluation path:
-encoding of list labels, the weak and strong decoders, and
-:func:`to_dense_targets`.  Host-side numpy; pandas inputs are not handled.
+Counterpart of the JAX package's ``data/encoder.py``: the box encoder (events
+<-> normalized 1-D time boxes) with its weak, strong and unlabeled encodings
+and decoders, the frame-level ``ManyHotEncoder``, and
+:func:`to_dense_targets`.  Host-side numpy.  Where the JAX package reads a
+DataFrame of strong labels, the port reads rows
+``(filename, onset, offset, event_label)``; a row whose label is None (or
+NaN) marks a file without events.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +30,19 @@ class BoxEncoder:
     def _index(self, label: str) -> int:
         return 0 if isinstance(self.labels, int) else int(self.labels.index(label))
 
+    def encode_unlabel(self, boxes) -> Dict[str, np.ndarray]:
+        """Patch or unlabeled encoding: class 0 for every box."""
+        return {
+            "labels": np.asarray([0] * len(boxes), dtype=np.int64),
+            "boxes": np.asarray(boxes, dtype=np.float32),
+            "orig_size": np.asarray(self.seconds),
+        }
+
     def encode_weak(self, labels) -> Dict[str, np.ndarray]:
         """Clip-level labels ("a,b", "empty" or a list) -> class ids only."""
         if isinstance(labels, str):
             labels = [] if labels == "empty" else labels.split(",")
-        ids = [self._index(lbl) for lbl in labels
-               if lbl is not None and not (isinstance(lbl, float) and np.isnan(lbl))]
+        ids = [self._index(lbl) for lbl in labels if not missing_label(lbl)]
         return {
             "labels": np.asarray(ids, dtype=np.int64),
             "boxes": np.zeros((0,), dtype=np.float32),
@@ -39,9 +50,16 @@ class BoxEncoder:
         }
 
     def encode_strong_df(self, label_list) -> Dict[str, np.ndarray]:
-        """[[label, onset_s, offset_s], ...] (or "empty", or plain labels) ->
-        class ids + [(on + off) / 2s, (off - on) / s] boxes."""
+        """[[label, onset_s, offset_s], ...], one file's rows
+        ``(filename, onset_s, offset_s, event_label)``, "empty" or plain
+        labels -> class ids + [(on + off) / 2s, (off - on) / s] boxes."""
         labels, boxes = [], []
+
+        def add(label, onset, offset):
+            labels.append(self._index(label))
+            on, off = float(onset) / self.seconds, float(offset) / self.seconds
+            boxes.append([(on + off) / 2, off - on])
+
         if not isinstance(label_list, str):  # a string is 'empty'
             for ev in label_list:
                 if isinstance(ev, str):
@@ -49,9 +67,10 @@ class BoxEncoder:
                         labels.append(self._index(ev))
                 elif len(ev) == 3:
                     if ev[0] != "":
-                        labels.append(self._index(ev[0]))
-                        on, off = float(ev[1]) / self.seconds, float(ev[2]) / self.seconds
-                        boxes.append([(on + off) / 2, off - on])
+                        add(ev[0], ev[1], ev[2])
+                elif len(ev) == 4:  # a table row
+                    if not missing_label(ev[3]):
+                        add(ev[3], ev[1], ev[2])
                 else:
                     raise NotImplementedError(type(ev))
         return {
@@ -116,6 +135,76 @@ class BoxEncoder:
                 threshold=threshold, min_duration=min_duration,
             )
         return out
+
+    def state_dict(self):
+        return {"labels": self.labels, "n_frames": self.seconds}
+
+    @classmethod
+    def load_state_dict(cls, state_dict):
+        return cls(state_dict["labels"], state_dict["n_frames"])
+
+
+def missing_label(label) -> bool:
+    """A row's label that marks "no event": None or NaN."""
+    return label is None or (isinstance(label, float) and np.isnan(label))
+
+
+class ManyHotEncoder:
+    """Frame-level multi-hot codec: weak labels -> [C] multi-hot, strong rows
+    -> [n_frames, C] (onsets and offsets in frames), decoded by contiguous
+    regions."""
+
+    def __init__(self, labels, n_frames: Optional[int] = None):
+        if isinstance(labels, np.ndarray):
+            labels = labels.tolist()
+        self.labels = list(labels)
+        self.n_frames = n_frames
+
+    def encode_weak(self, labels) -> np.ndarray:
+        y = np.zeros(len(self.labels), dtype=np.float32)
+        if isinstance(labels, str):
+            labels = [] if labels == "empty" else labels.split(",")
+        for label in labels:
+            if not missing_label(label):
+                y[self.labels.index(label)] = 1
+        return y
+
+    def encode_strong_df(self, rows) -> np.ndarray:
+        """One file's rows ``(filename, onset, offset, event_label)``."""
+        if self.n_frames is None:
+            raise ValueError("encode_strong_df needs n_frames")
+        y = np.zeros((self.n_frames, len(self.labels)), dtype=np.float32)
+        for _, onset, offset, label in (r[:4] for r in rows):
+            if not missing_label(label):
+                y[int(round(onset)):int(round(offset)), self.labels.index(label)] = 1
+        return y
+
+    @staticmethod
+    def find_contiguous_regions(activity: np.ndarray) -> np.ndarray:
+        """[T] 0/1 -> [n, 2] (onset, offset) frame indices."""
+        change = np.logical_xor(activity[1:], activity[:-1]).nonzero()[0] + 1
+        if activity[0]:
+            change = np.r_[0, change]
+        if activity[-1]:
+            change = np.r_[change, len(activity)]
+        return change.reshape(-1, 2)
+
+    def decode_strong(self, labels: np.ndarray) -> List[List]:
+        result = []
+        for i, label_col in enumerate(labels.T):
+            for row in self.find_contiguous_regions(label_col > 0.5):
+                result.append([self.labels[i], row[0], row[1]])
+        return result
+
+    def decode_weak(self, labels) -> List[str]:
+        return [self.labels[i] for i, v in enumerate(labels) if v == 1]
+
+    def state_dict(self):
+        return {"labels": self.labels, "n_frames": self.n_frames}
+
+    @classmethod
+    def load_state_dict(cls, state_dict):
+        return cls(state_dict["labels"], state_dict["n_frames"])
 
 
 def to_dense_targets(

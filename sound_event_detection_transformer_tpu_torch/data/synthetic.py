@@ -35,8 +35,13 @@ def make_clip(
 
 
 class SyntheticDataset:
-    """In-memory dataset of strongly labelled synthetic clips; ``dataset[i]``
-    is (features [frames, mels], encoded labels)."""
+    """In-memory dataset of synthetic clips; ``dataset[i]`` is (features
+    [frames, mels], encoded labels).
+
+    Labels are strong by default, clip-level with ``weak_only`` and "empty"
+    with ``unlabel``.  Clip ``i`` of seed ``s`` is named
+    ``synthetic_{s}_{i}.wav``, as in the JAX package.
+    """
 
     def __init__(
         self,
@@ -48,16 +53,45 @@ class SyntheticDataset:
         max_events: int = 3,
         seconds: float = 10.0,
         seed: int = 0,
+        weak_only: bool = False,
+        unlabel: bool = False,
     ):
         rng = np.random.RandomState(seed)
         self.encode_function = encode_function
         self.items = []
-        for _ in range(n_clips):
+        self.rows: List[Tuple[str, float, float, str]] = []
+        self.filenames: List[str] = []
+        for i in range(n_clips):
             data, events = make_clip(rng, classes, frames, mels, max_events, seconds)
-            self.items.append((data, [[lbl, on, off] for lbl, on, off in events]))
+            fname = f"synthetic_{seed}_{i}.wav"
+            self.filenames.append(fname)
+            if unlabel:
+                label_arg = "empty"
+            elif weak_only:
+                label_arg = sorted({e[0] for e in events})
+            else:
+                label_arg = [[lbl, on, off] for lbl, on, off in events]
+            self.items.append((data, label_arg))
+            self.rows.extend((fname, on, off, lbl) for lbl, on, off in events)
+        self.seconds = seconds
+        self.frames = frames
+
+    def ref_rows(self) -> List[Tuple[str, float, float, str]]:
+        """The ground truth: one row ``(filename, onset, offset, event_label)``
+        per planted event (every clip has at least one)."""
+        return list(self.rows)
 
     def __len__(self):
         return len(self.items)
+
+    def features_only(self, idx: int):
+        """Features and their frame count (the feature bank's protocol)."""
+        data = self.items[idx][0]
+        return data, data.shape[0]
+
+    def targets_only(self, idx: int, t_raw: int):
+        """The label dict of ``dataset[idx]``, without the features."""
+        return self.encode_function(self.items[idx][1])
 
     def __getitem__(self, idx: int):
         data, label_arg = self.items[idx]

@@ -43,7 +43,8 @@ def make_eval_step(
     fusion_strategy: Sequence[int],
     device: Optional[torch.device | str] = None,
 ) -> Callable[[Batch, torch.Tensor], Dict]:
-    """Returns ``step(batch, valid)``.
+    """Returns ``step(batch, valid)``, with the device it runs on as
+    ``step.device``.
 
     ``valid`` ([B] bool) marks real rows; padded tail rows are excluded from
     the loss masks.  The result holds ``losses`` (the criterion's dict),
@@ -78,6 +79,7 @@ def make_eval_step(
             )
         return res
 
+    step.device = dev
     return step
 
 
@@ -143,7 +145,8 @@ def make_train_step(
     frontend_fn: Optional[Callable] = None,
     device: Optional[torch.device | str] = None,
 ) -> Callable[[Batch, Optional[torch.Generator]], Dict[str, torch.Tensor]]:
-    """The supervised step: ``step(batch, generator) -> metrics``.
+    """The supervised step: ``step(batch, generator) -> metrics``, with the
+    device it runs on as ``step.device``.
 
     The batch is moved to ``device`` (the GPU when None).  With
     ``frontend_fn`` (see :func:`.ops.frontend.make_frontend_fn`),
@@ -177,4 +180,5 @@ def make_train_step(
         optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
 
+    step.device = dev
     return step

@@ -123,6 +123,19 @@ class SEDTOptimizer:
         self.adamw.zero_grad(set_to_none=False)
         self.updates += 1
 
+    def state_dict(self) -> Dict:
+        """AdamW's state and the two counts; a checkpoint keeps it for
+        ``--resume``."""
+        return {"adamw": self.adamw.state_dict(), "micro_steps": self.micro_steps,
+                "updates": self.updates}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s output into an optimizer built over
+        the same parameters, on their device (AdamW moves its moments there)."""
+        self.adamw.load_state_dict(state["adamw"])
+        self.micro_steps = int(state["micro_steps"])
+        self.updates = int(state["updates"])
+
 
 def make_optimizer(model: torch.nn.Module, tcfg: TrainConfig, steps_per_epoch: int,
                    schedule: str = "step", fixed_lr: Optional[float] = None) -> SEDTOptimizer:

@@ -1,0 +1,229 @@
+"""Training meters.
+
+Counterpart of the JAX package's ``utils/meters.py``: ``SmoothedValue``
+keeps a window of recent values plus global totals, ``MetricLogger`` groups
+meters and prints ETA lines, ``Heartbeat`` logs progress without touching the
+device, and ``DeviceMetricAccumulator`` sums each step's metric tensors on
+the device and fetches them once.
+"""
+from __future__ import annotations
+
+import datetime
+import time
+from collections import defaultdict, deque
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..parallel.distribute import get_world_size
+
+
+class AverageMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
+class AverageMeterSet:
+    def __init__(self):
+        self.meters: Dict[str, AverageMeter] = {}
+
+    def __getitem__(self, key):
+        if key not in self.meters:
+            self.meters[key] = AverageMeter()
+        return self.meters[key]
+
+    def update(self, name, value, n=1):
+        self[name].update(value, n)
+
+    def reset(self):
+        for m in self.meters.values():
+            m.reset()
+
+    def values(self, postfix=""):
+        return {name + postfix: m.val for name, m in self.meters.items()}
+
+    def averages(self, postfix="/avg"):
+        return {name + postfix: m.avg for name, m in self.meters.items()}
+
+
+class SmoothedValue:
+    """Windowed median/avg plus global totals."""
+
+    def __init__(self, window_size: int = 20, fmt: Optional[str] = None):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt or "{median:.4f} ({global_avg:.4f})"
+
+    def update(self, value, n: int = 1):
+        self.deque.append(float(value))
+        self.count += n
+        self.total += float(value) * n
+
+    def synchronize_between_processes(self):
+        """Sum (count, total) over processes: nothing to do for one."""
+        if get_world_size() > 1:
+            raise NotImplementedError(
+                "meters over several processes wait for multi-GPU (ROADMAP queue 1, item 7)")
+
+    @property
+    def median(self):
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def avg(self):
+        return float(np.mean(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self):
+        return self.total / max(self.count, 1)
+
+    @property
+    def max(self):
+        return max(self.deque) if self.deque else 0.0
+
+    @property
+    def value(self):
+        return self.deque[-1] if self.deque else 0.0
+
+    def __str__(self):
+        return self.fmt.format(median=self.median, avg=self.avg, global_avg=self.global_avg,
+                               max=self.max, value=self.value)
+
+
+class Heartbeat:
+    """Time-based progress line within an epoch, from the host clock and the
+    count of issued steps only: it never waits for the device."""
+
+    def __init__(self, log_fn, total_steps: int, interval_s: float = 60.0):
+        self.log_fn = log_fn
+        self.total = total_steps
+        self.interval_s = interval_s
+        self._t0 = time.time()
+        self._last = self._t0
+
+    def tick(self, i: int) -> None:
+        """Call once per step with the 0-based step index."""
+        now = time.time()
+        if now - self._last < self.interval_s:
+            return
+        self._last = now
+        done = i + 1
+        rate = done / max(now - self._t0, 1e-9)
+        eta = (self.total - done) / max(rate, 1e-9)
+        self.log_fn(f"  [{done}/{self.total}] {rate:.2f} steps/s issued, "
+                    f"eta {datetime.timedelta(seconds=int(eta))}")
+
+
+class DeviceMetricAccumulator:
+    """Sums each step's metric dict on the device; one fetch per epoch.
+
+    ``update`` adds the step's tensors (weighted) with one foreach kernel and
+    never waits for the device; ``totals`` stacks the scalar sums and copies
+    them to the host in one transfer.  A NaN in any step stays in its sum, so
+    the epoch-end check still sees it.
+    """
+
+    def __init__(self):
+        self._keys = None
+        self._sum = None
+        self._n = 0
+        self._w = 0.0
+
+    def update(self, metrics: Dict[str, torch.Tensor], weight: float = 1.0) -> None:
+        """Add one step's metrics, scaled by ``weight``; ``means`` divides by
+        the total weight.  The eval loop weights each batch by its real
+        (unpadded) rows."""
+        self._n += 1
+        self._w += weight
+        if self._sum is None:
+            self._keys = sorted(metrics)
+            self._sum = [metrics[k].detach().float() * weight for k in self._keys]
+        else:
+            torch._foreach_add_(self._sum, [metrics[k].detach().float() for k in self._keys],
+                                alpha=weight)
+
+    @property
+    def steps(self) -> int:
+        return self._n
+
+    def totals(self) -> Dict[str, np.ndarray]:
+        """The sums as numpy, the scalars in one device-to-host copy."""
+        if not self._n:
+            return {}
+        scalars = [k for k, v in zip(self._keys, self._sum) if v.dim() == 0]
+        out: Dict[str, np.ndarray] = {}
+        if scalars:
+            packed = torch.stack([v for v in self._sum if v.dim() == 0]).cpu()
+            out.update(zip(scalars, packed.double().numpy()))
+        for k, v in zip(self._keys, self._sum):
+            if k not in out:
+                out[k] = v.cpu().double().numpy()
+        return out
+
+    def means(self):
+        """(weight-normalized means, step count); one fetch."""
+        t = self.totals()
+        denom = self._w if self._w > 0 else max(self._n, 1)
+        return {k: v / denom for k, v in t.items()}, self._n
+
+
+class MetricLogger:
+    def __init__(self, delimiter: str = "\t"):
+        self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(attr)
+
+    def __str__(self):
+        return self.delimiter.join(f"{name}: {meter}" for name, meter in self.meters.items())
+
+    def add_meter(self, name, meter: SmoothedValue):
+        self.meters[name] = meter
+
+    def synchronize_between_processes(self):
+        for m in self.meters.values():
+            m.synchronize_between_processes()
+
+    def log_every(self, iterable: Iterable, print_freq: int, header: str = ""):
+        i = 0
+        start = time.time()
+        end = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        data_time = SmoothedValue(fmt="{avg:.4f}")
+        try:
+            total = len(iterable)  # type: ignore[arg-type]
+        except TypeError:
+            total = None
+        for obj in iterable:
+            data_time.update(time.time() - end)
+            yield obj
+            iter_time.update(time.time() - end)
+            if i % print_freq == 0 and total:
+                eta = iter_time.global_avg * (total - i)
+                print(f"{header} [{i}/{total}] eta: {datetime.timedelta(seconds=int(eta))} "
+                      f"{self} time: {iter_time} data: {data_time}")
+            i += 1
+            end = time.time()
+        elapsed = time.time() - start
+        print(f"{header} Total time: {datetime.timedelta(seconds=int(elapsed))}")

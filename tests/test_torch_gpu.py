@@ -26,6 +26,11 @@ import pytest
 import torch
 
 import chip_smoke
+from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
+from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator
+from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
+from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
+from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
 from sound_event_detection_transformer_tpu_torch.engine import init_train_state, make_train_step
 from sound_event_detection_transformer_tpu_torch.models import build_model
 from sound_event_detection_transformer_tpu_torch.ops import flash_attention as fa
@@ -294,3 +299,35 @@ def test_k1_launches_per_train_step(cuda, fine_tune, launches):
     torch.cuda.synchronize()
     assert hungarian.lsap_lane.launches - before == launches
     assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.gpu
+def test_evaluate_on_card_equals_cpu(cuda):
+    """``train_lib.evaluate`` with its feature bank on the card: the same F1
+    and PSDS as on the CPU, the loss means to 1e-3 (``chip_smoke``'s check,
+    which raises on any miss)."""
+    assert chip_smoke.small_evaluate(cuda, seed=1) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_bank_gather_on_card_equals_host_batch(cuda):
+    """Pinned bank batches: the gather on the card returns the features that
+    the host would collate, −1 rows reading row 0."""
+    cfg = SEDTConfig.tiny_test()
+    m = cfg.model
+    enc = BoxEncoder(list(cfg.data.classes), cfg.features.max_len_seconds)
+    ds = SyntheticDataset(10, cfg.data.classes, m.max_frames, m.n_mels, enc.encode_strong_df,
+                          seed=3)
+    bank = FeatureBank(ds, cuda)
+    host = list(batch_iterator(ds, 4, m.max_events, cfg.features.max_len_seconds,
+                               return_indexes=True))
+    banked = list(batch_iterator(ds, 4, m.max_events, cfg.features.max_len_seconds,
+                                 return_indexes=True, bank=bank, pin_memory=True))
+    assert len(host) == len(banked) == 3
+    for h, b in zip(host, banked):
+        assert b.feats is None and b.indexes.is_pinned() and b.targets.boxes.is_pinned()
+        feats = bank.gather(b.indexes)
+        assert feats.is_cuda
+        want = h.feats.clone()
+        want[h.indexes < 0] = torch.from_numpy(ds[0][0])[..., None]
+        assert torch.equal(feats.cpu(), want)

@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points never fall back to the CPU, every kernel's wrapper
+"""Boundaries of the PyTorch port: it imports nothing of JAX, of the JAX
+package or pandas (which the card's machine lacks), its entry points never
+fall back to the CPU, every kernel's wrapper
 dispatches (none raises "not ported"), and ``chip_smoke.py`` fails without a
 GPU."""
 import ast
@@ -12,6 +13,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from sound_event_detection_transformer_tpu_torch.cli import main_sedt, sedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.engine import (
     init_train_state,
@@ -24,13 +26,14 @@ from sound_event_detection_transformer_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     scaled_dot_attention,
 )
+from sound_event_detection_transformer_tpu_torch.train_lib import run_supervised
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sound_event_detection_transformer_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "sound_event_detection_transformer_tpu"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py",
-                                        ROOT / "bench_torch.py",
+                                        ROOT / "bench_torch.py", ROOT / "train_sedt_torch.py",
                                         ROOT / "tools" / "time_jv_kernels.py"]
 
 
@@ -46,7 +49,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     # the port's own name starts with the JAX package's, so roots are compared whole
-    assert not BANNED & set(_imported_roots(path))
+    assert not (BANNED | {"pandas"}) & set(_imported_roots(path))
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -62,18 +65,19 @@ def test_port_runs_without_loading_jax():
         "torch.set_num_threads(2)\n"
         "from sound_event_detection_transformer_tpu_torch.config import SEDTConfig\n"
         "from sound_event_detection_transformer_tpu_torch.models import build_model\n"
-        "from sound_event_detection_transformer_tpu_torch import engine, predict_cli, train_lib\n"
+        "from sound_event_detection_transformer_tpu_torch import cli, engine, metrics, predict_cli, train_lib\n"
+        "from sound_event_detection_transformer_tpu_torch.data import dataset, feature_bank\n"
         "from sound_event_detection_transformer_tpu_torch.ops import augment, dropout\n"
         "from sound_event_detection_transformer_tpu_torch.parallel import optim\n"
         "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
-        "import bench_torch, predict_torch\n"
+        "import bench_torch, predict_torch, train_sedt_torch\n"
         "cfg = SEDTConfig.tiny_test()\n"
         "model, wd = build_model(cfg, device='cpu')\n"
         "m = cfg.model\n"
         "out = model(torch.zeros(1, m.max_frames, m.n_mels, 1), torch.zeros(1, m.max_frames, dtype=torch.bool))\n"
         "assert out['pred_logits'].shape == (1, m.num_queries, m.num_classes + 1)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
-        f"{sorted(BANNED)!r}]\n"
+        f"{sorted(BANNED | {'pandas'})!r}]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -95,6 +99,11 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(model, wd, cfg, state.optimizer)
     make_train_step(model, wd, cfg, state.optimizer, device="cpu")
+    argv = ["--dataname", "urbansed", "--synthetic_smoke", "--log"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_supervised(sedt_args(argv))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_sedt(argv)
 
 
 def test_bare_cuda_means_the_current_card(monkeypatch):
