@@ -30,7 +30,10 @@ nvcc for sm_90a, all started together), then:
    the CPU and on the card from the same weights, and compares the two (TF32
    off, to 1e-3: the losses, every parameter after each train step, each
    epoch's train and validation loss means; the evaluation's F1 and PSDS
-   exactly, every F1 of the trainer to 1e-3);
+   exactly, every F1 of the trainer to 1e-3); then the same trainer on
+   small seeded datasets on disk (URBAN-SED ``.npy``, URBAN-SED
+   ``--from_wavs``, DCASE ``.npy`` with a weak stream; 500 and 496 frames),
+   card against CPU, each epoch's loss means to 1e-3;
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
@@ -58,6 +61,23 @@ nvcc for sm_90a, all started together), then:
    metrics and PSDS, and the checkpoint I/O, times K1 on the cost of the
    run's first train step, then runs the trainer once more for one epoch and
    profiles that epoch's train steps into ``chiprun_out/trainer_profile.txt``;
+4d. drives the flagship trainer at 500 x 64 on a dataset on disk: it
+   writes a seeded URBAN-SED layout with the port's writer (``DISK_CLIPS``:
+   512 / 64 / 64 clips of 10 s at 44.1 kHz) and a seeded torchvision-layout
+   ``resnet50.pth`` beside it, then runs ``FLAGSHIP_DISK`` (batch 64, 2
+   epochs with the fine-tune stage in the second, strategies 1-3, PSDS, a
+   checkpoint every epoch) twice from a fresh ``exp_root``: on the ``.npy``
+   cache, which the run extracts, and with ``--from_wavs`` (raw waveforms,
+   the frontend inside the train step, no train bank).  Each run must load
+   the ImageNet backbone leaf for leaf (conv0 keeps its init), launch K1
+   exactly 24 times in train steps and 8 in eval steps and K2-K4 never,
+   keep every loss finite and write best checkpoints that load back; it
+   prints the writing, the feature extraction and the scaler pass, per
+   epoch ms/step, clips/s and the data wait per step, the evaluations and
+   the checkpoint I/O, the peak memory, the split of one ``--from_wavs``
+   batch (read, collate, pin on the host; copy and frontend on the card),
+   and one more epoch of each source profiled into
+   ``chiprun_out/disk_trainer_{npy,wav}_profile.txt``;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -108,6 +128,7 @@ from bench_torch import flagship_config, synthetic_batch
 from sound_event_detection_transformer_tpu_torch import train_lib
 from sound_event_detection_transformer_tpu_torch.cli import sedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
+from sound_event_detection_transformer_tpu_torch.data import wav_dataset
 from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
 from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
@@ -124,6 +145,10 @@ from sound_event_detection_transformer_tpu_torch.models import (
     postprocess,
     set_criterion,
     total_loss,
+)
+from sound_event_detection_transformer_tpu_torch.models.torch_import import (
+    torchvision_resnet_shapes,
+    torchvision_to_backbone,
 )
 from sound_event_detection_transformer_tpu_torch.ops import (
     _build,
@@ -199,6 +224,23 @@ FLAGSHIP_TRAINER = ["--dataname", "urbansed", "--synthetic_smoke", "--smoke_clip
                     "--eval_interval", "1", "--fusion_strategy", "1", "2", "3", "--psds",
                     "--roc_curves", TRAIN_ROOT + "/roc/", "--checkpoint_epochs", "1",
                     "--exp_root", TRAIN_ROOT, "--log"]  # --log: stdout is not teed to ./log
+# the trainer on disk: the flagship at 500 x 64 on a seeded URBAN-SED layout
+# (512 / 64 / 64 clips, cut from the real 6,000 / 2,000 / 2,000), 8 steps an
+# epoch, a plain and a fine-tune epoch, one batch per validation and eval;
+# and the tiny trainer on a few clips in both layouts, card against CPU
+DISK_ROOT = "build/chip_data"
+DISK_EXP = "build/chip_disk_exp"
+DISK_CLIPS = {"train": 512, "validate": 64, "test": 64}
+FLAGSHIP_DISK = ["--dataname", "urbansed", "--data_root", DISK_ROOT, "--batch_size", "64",
+                 "--dec_at", "--epochs", "2", "--epochs_ls", "1", "--eval_interval", "1",
+                 "--fusion_strategy", "1", "2", "3", "--psds", "--checkpoint_epochs", "1",
+                 "--log"]
+TINY_DISK_ROOT = "build/chip_data_tiny"
+TINY_DISK = ["--data_root", TINY_DISK_ROOT, "--batch_size", "4", "--backbone", "resnet18",
+             "--hidden_dim", "64", "--enc_layers", "1", "--dec_layers", "1",
+             "--dim_feedforward", "128", "--epochs", "2", "--epochs_ls", "10", "--dropout", "0",
+             "--compute_dtype", "float32", "--dec_at", "--fusion_strategy", "1", "2", "--log",
+             "--info", "tiny"]
 SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
 PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
 
@@ -1127,16 +1169,18 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
 # --------------------------------------------------------------- trainer
 
 
-def trainer_launches(args) -> dict:
-    """K1's launches that the trainer's arguments call for: one per plain
-    train step, two per fine-tune step, one per eval batch (the epochs'
-    evaluations, then validation and eval for each strategy's final test)."""
-    steps = args.smoke_clips // args.batch_size
+def trainer_launches(args, train: int, valid: int, test: int) -> dict:
+    """K1's launches that the trainer's arguments call for on ``train``
+    training, ``valid`` validation and ``test`` eval clips: one per plain
+    train step, two per fine-tune step, one per eval batch (every
+    ``eval_interval`` epochs' validation, then validation and eval for each
+    strategy's final test)."""
+    steps = train // args.batch_size
     plain = min(args.epochs, args.epochs_ls)
-    evals = args.epochs // args.eval_interval + 2 * len(args.fusion_strategy)
-    eval_batches = -(-max(8, args.smoke_clips // 4) // args.batch_size)
+    batches = lambda n: -(-n // args.batch_size)
+    evals = args.epochs // args.eval_interval * batches(valid)
     return {"train": steps * plain + 2 * steps * (args.epochs - plain),
-            "eval": evals * eval_batches}
+            "eval": evals + len(args.fusion_strategy) * (batches(valid) + batches(test))}
 
 
 def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: float) -> dict:
@@ -1147,7 +1191,8 @@ def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: flo
     is profiled."""
     args = sedt_args(FLAGSHIP_TRAINER)
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)  # every checkpoint checked is this run's
-    want = trainer_launches(args)
+    n_valid = max(8, args.smoke_clips // 4)  # build_synthetic_data's validation and eval set
+    want = trainer_launches(args, args.smoke_clips, n_valid, n_valid)
     eval_launches = []
     real_evaluate = train_lib.evaluate
 
@@ -1236,24 +1281,264 @@ def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: flo
 
     # one more run of one epoch (cuDNN and the allocator warm), its train
     # epoch under the profiler
+    root = TRAIN_ROOT + "_profiled"
+    profiled_trainer_epoch(FLAGSHIP_TRAINER + ["--roc_curves", root + "/roc/"], root, dev,
+                           f"trainer epoch ({args.smoke_clips // batch} steps)", card,
+                           "trainer_profile.txt")
+    return {"launches": counts["K1"], "err": err, "shape": list(cost.shape), "timing": timing}
+
+
+def profiled_trainer_epoch(argv: list, exp_root: str, dev: torch.device, label: str, card: str,
+                           file_name: str) -> None:
+    """``run_supervised`` on ``argv`` for one epoch in a fresh ``exp_root``,
+    its train epoch under the profiler."""
+    shutil.rmtree(exp_root, ignore_errors=True)
     real_epoch = train_lib.train_one_epoch
-    steps = args.smoke_clips // batch
 
     def profiled_epoch(*a, **kw):
         out = []
-        profile(lambda: out.append(real_epoch(*a, **kw)), 1, f"trainer epoch ({steps} steps)",
-                card, "trainer_profile.txt")
+        profile(lambda: out.append(real_epoch(*a, **kw)), 1, label, card, file_name)
         return out[0]
 
-    root = TRAIN_ROOT + "_profiled"
-    shutil.rmtree(root, ignore_errors=True)
     train_lib.train_one_epoch = profiled_epoch
     try:
-        train_lib.run_supervised(sedt_args(FLAGSHIP_TRAINER + [
-            "--epochs", "1", "--exp_root", root, "--roc_curves", root + "/roc/"]), device=dev)
+        train_lib.run_supervised(sedt_args(argv + ["--exp_root", exp_root, "--epochs", "1"]),
+                                 device=dev)
     finally:
         train_lib.train_one_epoch = real_epoch
-    return {"launches": counts["K1"], "err": err, "shape": list(cost.shape), "timing": timing}
+
+
+# --------------------------------------------------------------- trainer on disk
+
+
+def write_disk_data(root: str, card: str) -> dict:
+    """Phase 4d's dataset: a seeded URBAN-SED layout (``DISK_CLIPS``) by the
+    port's writer under ``root``, and beside it a seeded torchvision-layout
+    ``resnet50.pth``, so the trainer's ``<data_root>/<backbone>.pth`` auto
+    path is taken.  Returns the checkpoint's values."""
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    wav_dataset.write_urbansed(root, seed=SEED, **DISK_CLIPS)
+    write_s = time.perf_counter() - t0
+    n = sum(DISK_CLIPS.values())
+    wav_bytes = sum(p.stat().st_size for p in Path(root).rglob("*.wav"))
+    print(f"disk dataset: {n} clips of 10 s at 44.1 kHz ({DISK_CLIPS}), {wav_bytes / 1e6:.1f} MB "
+          f"of wavs written in {write_s:.3f} s, {write_s / n * 1e3:.3f} ms a clip ({card})")
+    rng = np.random.RandomState(SEED)
+    state = {}
+    for name, shape in torchvision_resnet_shapes("resnet50").items():
+        if name.endswith("num_batches_tracked"):
+            state[name] = torch.tensor(0)
+        elif name.endswith("running_var"):
+            state[name] = torch.from_numpy(rng.rand(*shape).astype(np.float32) + 0.5)
+        else:
+            state[name] = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 0.02)
+    torch.save(state, Path(root) / "resnet50.pth")
+    return torchvision_to_backbone(state)
+
+
+def run_disk_trainer(args, dev: torch.device, want: dict, imagenet: dict) -> dict:
+    """One counted run of ``run_supervised`` on disk; returns its result, K1's
+    launches in train and in eval steps, the LSAP costs, the peak memory and
+    the model's parameter count.  Checks the backbone as loaded (the file's
+    values leaf for leaf, conv0 its own init), the launch counts, the losses
+    and that every best checkpoint loads back."""
+    eval_launches, loaded = [], []
+    real_evaluate, real_init = train_lib.evaluate, train_lib._imagenet_backbone_init
+
+    def evaluate(*a, **kw):  # counts the eval steps' K1 launches apart
+        before = hungarian.lsap_lane.launches
+        out = real_evaluate(*a, **kw)
+        eval_launches.append(hungarian.lsap_lane.launches - before)
+        return out
+
+    def backbone_init(model, a, log):
+        conv0 = {k: v.clone() for k, v in model.backbone.conv0.state_dict().items()}
+        path = real_init(model, a, log)
+        own = model.backbone.state_dict()
+        assert path == str(Path(args.data_root) / "resnet50.pth"), path
+        assert set(own) - set(imagenet) == {"conv0.weight", "conv0.bias"}
+        for k, v in imagenet.items():
+            assert torch.equal(own[k].cpu(), v), f"backbone leaf {k} is not the file's"
+        for k, v in model.backbone.conv0.state_dict().items():
+            assert torch.equal(v, conv0[k]), f"conv0.{k} changed"
+        loaded.append(path)
+        return path
+
+    train_lib.evaluate, train_lib._imagenet_backbone_init = evaluate, backbone_init
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()  # the main path: counts from here ...
+        result, costs = with_lsap_costs(lambda: train_lib.run_supervised(args, device=dev))
+        counts = launch_counts()  # ... to here
+    finally:
+        train_lib.evaluate, train_lib._imagenet_backbone_init = real_evaluate, real_init
+    peak = torch.cuda.max_memory_allocated(dev)
+    k1_eval = sum(eval_launches)
+    k1_train = counts["K1"] - k1_eval
+    assert loaded, "the trainer did not load the ImageNet backbone"
+    assert (k1_train, k1_eval) == (want["train"], want["eval"]), (
+        f"K1 launched {k1_train} times in train steps and {k1_eval} in eval steps, "
+        f"not {want['train']} and {want['eval']}")
+    assert counts["K2"] == counts["K3"] == counts["K4"] == 0, counts
+    epochs = result.epochs
+    assert [e["epoch"] for e in epochs] == list(range(args.epochs)), epochs
+    assert all(np.isfinite(e["loss"]) for e in epochs), [e["loss"] for e in epochs]
+    assert [e["fine_tune"] for e in epochs] == [e >= args.epochs_ls for e in range(args.epochs)]
+    assert [r["fusion_strategy"] for r in result.final] == list(args.fusion_strategy)
+    model, _ = build_model(train_lib.args_to_config(args), device=dev)
+    for m in args.fusion_strategy:
+        path = Path(result.model_dir) / f"{args.info}_{m}_best"
+        assert path.is_file(), path
+        model.load_state_dict(load_checkpoint(str(path))["model"], strict=True)
+    return {"result": result, "k1_train": k1_train, "k1_eval": k1_eval, "costs": costs,
+            "peak": peak, "n_params": sum(p.numel() for p in model.parameters())}
+
+
+def report_disk_run(label: str, result, args, peak: int, card: str) -> None:
+    batch = args.batch_size
+    ckpt_s = 0.0
+    for e in result.epochs:
+        t = e["eval_timings"]
+        ckpt_s += e.get("checkpoint_s", 0.0)
+        print(f"disk trainer {label} epoch {e['epoch']}{' (fine-tune)' if e['fine_tune'] else ''}: "
+              f"loss {e['loss']:.4f}, {e['train_s'] / e['steps'] * 1e3:.3f} ms/step, "
+              f"{batch * e['steps'] / e['train_s']:.1f} clips/s, data wait "
+              f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step ({e['data_wait_s']:.3f} s in "
+              f"{e['steps']} steps); eval steps {t['eval_steps_s'] * 1e3:.3f} ms for "
+              f"{t['batches']} batches, host decode {t['decode_s'] * 1e3:.3f} ms, metrics "
+              f"{t['metrics_s'] * 1e3:.3f} ms; checkpoint I/O {e.get('checkpoint_s', 0.0):.3f} s "
+              f"({card})")
+    for r in result.final:
+        v, t = r["valid_timings"], r["eval_timings"]
+        ckpt_s += r.get("checkpoint_s", 0.0)
+        print(f"disk trainer {label} final test, strategy {r['fusion_strategy']}: validation "
+              f"eval steps {v['eval_steps_s'] * 1e3:.3f} ms, eval set eval steps "
+              f"{t['eval_steps_s'] * 1e3:.3f} ms, decode {t['decode_s'] * 1e3:.3f} ms, metrics "
+              f"{t['metrics_s'] * 1e3:.3f} ms, PSDS {t['psds_s'] * 1e3:.3f} ms; F1 "
+              f"{r['valid_f1']:.4f} / {r['eval_f1']:.4f} ({card})")
+    print(f"disk trainer {label}: checkpoint I/O {ckpt_s:.3f} s in all, peak memory "
+          f"{peak / 2**30:.3f} GiB ({card})")
+
+
+def wav_batch_split(args, dev: torch.device, card: str) -> None:
+    """Where one ``--from_wavs`` train batch of the disk dataset spends its
+    time: on the host clock, reading its clips from disk (the first epoch)
+    or from ``WavLoadDf``'s RAM cache (later epochs), ``collate`` (stack and
+    targets) and pinning, the prefetch thread's work; on CUDA events, the
+    copy to the card and the frontend."""
+    data = train_lib.build_real_data(train_lib.args_to_config(args), args)
+    ds, fe = data["train"], data["frontend"]
+    cfg = train_lib.args_to_config(args)
+    idx = list(range(args.batch_size))
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in idx]  # from disk: ds keeps them in RAM after this
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in idx]
+    cached_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = collate(samples, cfg.model.max_events, cfg.features.max_len_seconds)
+    collate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pinned = batch.feats.pin_memory()
+    pin_s = time.perf_counter() - t0
+    frontend = make_frontend_fn(max_frames=cfg.model.max_frames, compute_log=True, **fe)
+    feats = pinned.to(dev)
+    copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), 5)
+    with torch.no_grad():
+        frontend_ms = cuda_ms(lambda: frontend(feats), 5)
+    print(f"--from_wavs batch of {args.batch_size} ({pinned.numel() * 4 / 1e6:.1f} MB): read "
+          f"from disk {read_s * 1e3:.3f} ms, from the RAM cache {cached_s * 1e3:.3f} ms, collate "
+          f"{collate_s * 1e3:.3f} ms, pin {pin_s * 1e3:.3f} ms (host clock, one thread); copy "
+          f"to the card {copy_ms:.3f} ms, frontend {frontend_ms:.3f} ms (CUDA events) ({card})")
+
+
+def run_disk_phase(dev: torch.device, card: str, latency: dict, clock_hz: float) -> dict:
+    """Phase 4d: the flagship trainer at 500 x 64 on a seeded URBAN-SED
+    dataset on disk, first on the ``.npy`` cache (which it extracts), then
+    with ``--from_wavs``; each then profiled over one more epoch.  Returns
+    K1's launches, parity error and timing on the cost of the run's first
+    train step, for the ``kernels`` line."""
+    imagenet = write_disk_data(DISK_ROOT, card)
+    want = trainer_launches(sedt_args(FLAGSHIP_DISK), DISK_CLIPS["train"],
+                            DISK_CLIPS["validate"], DISK_CLIPS["test"])
+    runs = {}
+    for label, extra in (("npy", []), ("wav", ["--from_wavs"])):
+        exp = f"{DISK_EXP}_{label}"
+        shutil.rmtree(exp, ignore_errors=True)  # a fresh scaler, and every checkpoint this run's
+        args = sedt_args(FLAGSHIP_DISK + extra + ["--exp_root", exp])
+        t0 = time.perf_counter()
+        run = run_disk_trainer(args, dev, want, imagenet)
+        wall_s = time.perf_counter() - t0
+        result = run["result"]
+        # --from_wavs streams the audio: no bank for the train batches
+        assert result.bank == (label == "npy"), f"{label}: bank {result.bank}"
+        d = result.data_timings
+        cfg = train_lib.args_to_config(args)
+        if label == "npy":
+            assert d["extracted"] == d["clips"] == sum(DISK_CLIPS.values()), d
+            print(f"disk trainer: {describe(cfg, args.batch_size, run['n_params'])}, ImageNet "
+                  f"backbone from {args.data_root}/resnet50.pth")
+            print(f"disk trainer feature extraction: {d['extracted']} clips in "
+                  f"{d['features_s']:.3f} s, {d['features_s'] / d['extracted'] * 1e3:.3f} ms a clip "
+                  f"(read, STFT, mel, np.save on the host); scaler pass {d['scaler_s']:.3f} s over "
+                  f"{DISK_CLIPS['train']} clips ({card})")
+        else:
+            assert d["extracted"] == 0, d  # the .npy run's cache serves validation and eval
+            print(f"disk trainer --from_wavs: scaler pass {d['scaler_s']:.3f} s; the train "
+                  f"batches carry {args.batch_size} x {int(cfg.features.max_len_seconds * cfg.features.sample_rate)} "
+                  f"samples ({card})")
+        print(f"disk trainer {label}: {wall_s:.3f} s in all; K1 {run['k1_train']} launches in "
+              f"train steps, {run['k1_eval']} in eval steps; K2-K4 none ({card})")
+        report_disk_run(label, result, args, run["peak"], card)
+        runs[label] = (run["k1_train"] + run["k1_eval"], run["costs"])
+    wav_batch_split(sedt_args(FLAGSHIP_DISK + ["--from_wavs", "--exp_root", f"{DISK_EXP}_wav"]),
+                    dev, card)
+    for label, extra in (("npy", []), ("wav", ["--from_wavs"])):
+        profiled_trainer_epoch(FLAGSHIP_DISK + extra, f"{DISK_EXP}_{label}_profiled", dev,
+                               f"disk trainer epoch ({label})", card,
+                               f"disk_trainer_{label}_profile.txt")
+    launches, costs = runs["npy"]
+    cost = costs[0]  # the first train step's
+    err = k1_against_references(cost.cpu().numpy(), dev, "the disk trainer's own cost")
+    timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5, latency,
+                     clock_hz)
+    return {"launches": launches, "wav_launches": runs["wav"][0], "err": err,
+            "shape": list(cost.shape), "timing": timing}
+
+
+def small_disk_trainers(dev: torch.device) -> float:
+    """``run_supervised`` at the tiny size on small seeded datasets on disk
+    (URBAN-SED ``.npy``, URBAN-SED ``--from_wavs``, DCASE ``.npy`` with a
+    weak stream), on the card and on the CPU, TF32 off: each epoch's train
+    and validation loss means to 1e-3.  Returns the largest difference."""
+    shutil.rmtree(TINY_DISK_ROOT, ignore_errors=True)
+    wav_dataset.write_urbansed(TINY_DISK_ROOT, train=8, validate=4, test=4, seed=SEED)
+    wav_dataset.write_dcase(TINY_DISK_ROOT, strong=4, weak=4, unlabel=0, validate=4, test=4,
+                            seed=SEED)
+    worst = 0.0
+    for extra in (["--dataname", "urbansed"], ["--dataname", "urbansed", "--from_wavs"],
+                  ["--dataname", "dcase", "--n_weak", "2"]):
+        runs = {}
+        with cudnn_tf32_off():
+            for d in (torch.device("cpu"), dev):
+                root = Path(TINY_DISK_ROOT + "_exp") / d.type
+                shutil.rmtree(root, ignore_errors=True)
+                runs[d.type] = train_lib.run_supervised(
+                    sedt_args(TINY_DISK + extra + ["--exp_root", str(root)]), device=d)
+        pairs = []
+        for r, g in zip(runs["cpu"].epochs, runs[dev.type].epochs, strict=True):
+            for key in ("loss_means", "val_loss_means"):
+                pairs += [(f"{extra} epoch {r['epoch']} {key} {k}", g[key][k], v)
+                          for k, v in r[key].items()]
+        for name, g, r in pairs:
+            assert np.isfinite(g) and np.isclose(g, r, rtol=1e-3, atol=1e-3), (name, g, r)
+            worst = max(worst, abs(float(g) - float(r)))
+        print(f"tiny disk trainer {' '.join(extra[1:])}, card vs CPU: {len(pairs)} loss means "
+              f"agree to 1e-3")
+    return worst
 
 
 # --------------------------------------------------------------- predict
@@ -1496,6 +1781,9 @@ def main() -> None:
     worst = small_trainer(dev)
     print(f"tiny f32 trainer, 2 epochs, card vs CPU: ok, max |loss mean or F1 difference| "
           f"{worst:.3g}")
+    worst = small_disk_trainers(dev)
+    print(f"tiny f32 trainers on disk (URBAN-SED .npy and --from_wavs, DCASE .npy), 2 epochs, "
+          f"card vs CPU: ok, max |loss mean difference| {worst:.3g}")
 
     # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
@@ -1551,6 +1839,11 @@ def main() -> None:
     # 4c. the supervised trainer at the flagship's widths
     trainer = run_trainer_phase(dev, card, latency, clock_hz)
     errs["K1"] = max(errs["K1"], trainer["err"])
+    torch.cuda.empty_cache()
+
+    # 4d. the flagship trainer on a dataset on disk, .npy and --from_wavs
+    disk = run_disk_phase(dev, card, latency, clock_hz)
+    errs["K1"] = max(errs["K1"], disk["err"])
     torch.cuda.empty_cache()
 
     # 5. long-clip predict at the flagship's width
@@ -1635,6 +1928,11 @@ def main() -> None:
          "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
          "shape": trainer["shape"], "launches": trainer["launches"],
          "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **trainer["timing"]},
+        {"name": "K1 lsap_lane disk trainer", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": disk["shape"], "launches": disk["launches"],
+         "launches_from_wavs": disk["wav_launches"],
+         "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **disk["timing"]},
         {"name": "K2 lsap_block", "source": hungarian_src,
          "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
          "shape": shapes["K2"], "launches": launches["K2"],

@@ -2,8 +2,9 @@
 
 The port's own copy of the JAX package's ``config.py``: features, model, loss,
 data, augment and train dataclasses (everything ``train_lib.args_to_config``
-fills; the device-mesh layout waits for the multi-GPU slice) and the
-``urbansed_supervised`` / ``tiny_test`` presets.  Field names, defaults and
+fills; the device-mesh layout waits for the multi-GPU slice), the
+``urbansed_supervised`` / ``tiny_test`` presets and
+``load_classes_from_tsv``.  Field names, defaults and
 presets are the JAX package's, so a configuration means the same thing on
 both sides.
 """
@@ -39,6 +40,14 @@ URBAN_CLASSES = (
     "siren",
     "street_music",
 )
+
+
+def load_classes_from_tsv(tsv_path: str) -> Tuple[str, ...]:
+    """The sorted unique non-empty ``event_label``s of a metadata TSV."""
+    from .data.tsv import read_tsv
+
+    return tuple(sorted({r["event_label"] for r in read_tsv(tsv_path)
+                         if r.get("event_label") is not None}))
 
 
 @dataclass(frozen=True)

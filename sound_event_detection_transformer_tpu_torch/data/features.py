@@ -1,22 +1,29 @@
-"""Host-side audio reading and the numpy mirror of the device frontend.
+"""Offline feature extraction: wav files -> cached log-mel ``.npy`` files and
+metadata rows.
 
-Counterpart of ``read_audio``, ``_stft_constants`` and ``logmel_numpy`` of the
-JAX package's ``data/features.py``: wav decoding by scipy (or the stdlib),
-polyphase resampling by scipy.signal, and the log-mel computation that shares
-its window and mel weights with ``ops/frontend.py``, so cached features and
-the device path agree to float tolerance.  The dataset preparation
-(``SedData``, ``get_dfs``) waits for the data-pipeline slice.
+Counterpart of the JAX package's ``data/features.py``: wav decoding by scipy
+(or the stdlib), polyphase resampling by scipy.signal, the log-mel
+computation that shares its window and mel weights with ``ops/frontend.py``
+(so cached features and the device path agree to float tolerance), and the
+dataset preparation ``SedData`` / ``get_dfs`` on rows (``data/tsv.py``)
+instead of DataFrames.  Features live under
+``<base>/sr<sr>_win<w>_hop<h>_mels<m>[_nolog]/<clip>.npy``, the JAX
+package's layout, so either side reads the other's cache.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+import os.path as osp
 from functools import lru_cache
 from math import gcd
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..config import FeatureConfig
 from ..ops import frontend
+from .tsv import read_tsv, unique
 
 
 def read_audio(path: str, target_fs: Optional[int] = None):
@@ -84,3 +91,92 @@ def logmel_numpy(y: np.ndarray, fc: FeatureConfig) -> np.ndarray:
         log_spec = 20.0 * np.log10(np.maximum(1e-5, mel))
         mel = np.maximum(log_spec, log_spec.max() - 80.0)
     return mel.astype(np.float32)
+
+
+def meta_path_to_audio_dir(tsv_path: str) -> str:
+    """``.../metadata/<x>/<split>.tsv`` -> ``.../audio/<x>/<split>``."""
+    return osp.splitext(tsv_path.replace("metadata", "audio"))[0]
+
+
+class SedData:
+    """Dataset preparation: a metadata TSV -> rows with the clip's
+    ``feature_filename`` and ``wav_filename``, extracting the missing
+    ``.npy`` log-mels on the way.
+
+    ``compute_log=False`` (the trainers' choice) caches mel amplitudes under
+    a ``_nolog`` directory; the host transform then takes the dB per clip
+    (``transforms.apply_log``).
+    """
+
+    def __init__(self, dataset_name: str, base_feature_dir: Optional[str] = None,
+                 recompute_features: bool = False, compute_log: bool = False):
+        fc = FeatureConfig.urbansed() if dataset_name == "urbansed" else FeatureConfig.dcase()
+        self.fc = dataclasses.replace(fc, compute_log=compute_log)
+        self.dataset_name = dataset_name
+        self.recompute_features = recompute_features
+        self.compute_log = compute_log
+        self.n_extracted = 0  # clips whose features this object computed
+        base = base_feature_dir or osp.join("data", dataset_name, "features")
+        ext = "" if compute_log else "_nolog"
+        self.feature_dir = osp.join(
+            base, f"sr{self.fc.sample_rate}_win{self.fc.n_window}_hop{self.fc.hop_size}"
+                  f"_mels{self.fc.n_mels}{ext}")
+        os.makedirs(self.feature_dir, exist_ok=True)
+
+    def load_and_compute_mel_spec(self, wav_path: str) -> np.ndarray:
+        audio, _ = read_audio(wav_path, self.fc.sample_rate)
+        return logmel_numpy(audio, self.fc)
+
+    def _extract(self, wav_path: str, out_path: str) -> bool:
+        """Write the clip's features unless they are cached; False when the
+        wav cannot be read."""
+        if osp.exists(out_path) and not self.recompute_features:
+            return True
+        try:
+            mel = self.load_and_compute_mel_spec(wav_path)
+        except OSError:  # a missing or unreadable wav drops the clip
+            return False
+        os.makedirs(osp.dirname(out_path), exist_ok=True)
+        np.save(out_path, mel)
+        self.n_extracted += 1
+        return True
+
+    def initialize_and_get_df(self, tsv_path: str, audio_dir: Optional[str] = None,
+                              nb_files: Optional[int] = None) -> List[Dict]:
+        """The TSV's rows (of its first ``nb_files`` distinct clips), each with
+        ``feature_filename`` and ``wav_filename``, in the TSV's order; the
+        rows of a clip whose wav could not be read are dropped."""
+        rows = read_tsv(tsv_path)
+        if nb_files is not None:
+            keep = set(unique(r["filename"] for r in rows)[:nb_files])
+            rows = [r for r in rows if r["filename"] in keep]
+        audio_dir = audio_dir or meta_path_to_audio_dir(tsv_path)
+        paths = {}
+        for fname in unique(r["filename"] for r in rows):
+            wav = osp.join(audio_dir, fname)
+            out = osp.join(self.feature_dir, osp.splitext(fname)[0] + ".npy")
+            if self._extract(wav, out):
+                paths[fname] = (out, wav)
+        return [dict(r, feature_filename=paths[r["filename"]][0],
+                     wav_filename=paths[r["filename"]][1])
+                for r in rows if r["filename"] in paths]
+
+
+def get_dfs(dataset: SedData, paths: Dict[str, str], unlabel_data: bool = False,
+            nb_files: Optional[int] = None,
+            audio_dirs: Optional[Dict[str, str]] = None) -> Dict[str, List[Dict]]:
+    """Each split's rows from ``SedData.initialize_and_get_df``.
+
+    ``paths`` maps a split to its TSV, e.g. {train, validation, eval} for
+    URBAN-SED or {weak, synthetic, validation, eval[, unlabel]} for DCASE;
+    the ``unlabel`` split is read only with ``unlabel_data``.  ``audio_dirs``
+    overrides the metadata -> audio mapping per split (DCASE's
+    ``validation.tsv`` lies one directory deeper than its audio).
+    """
+    out = {}
+    for split, tsv in paths.items():
+        if split == "unlabel" and not unlabel_data:
+            continue
+        out[split] = dataset.initialize_and_get_df(
+            tsv, audio_dir=(audio_dirs or {}).get(split), nb_files=nb_files)
+    return out

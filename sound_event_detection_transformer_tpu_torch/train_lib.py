@@ -6,17 +6,20 @@ Counterpart of the JAX package's ``train_lib.py``:
   and the same dataset overrides of ``num_queries``, filling the port's own
   config dataclasses;
 * ``build_synthetic_data``: the ``--synthetic_smoke`` datasets;
+* ``build_real_data``: the datasets on disk (URBAN-SED or DCASE layout):
+  TSVs -> ``SedData`` (the ``.npy`` log-mel cache) -> the scaler of the
+  training split -> ``DataLoadDf``, or ``WavLoadDf`` with ``--from_wavs``;
 * ``evaluate``: the evaluation step over a dataset, the host decode, the
   event, segment and clip metrics per fusion strategy, and PSDS over decode
   thresholds, returned as an :class:`EvalResult`;
-* ``run_supervised``: the supervised trainer on ``--synthetic_smoke`` (epochs,
-  evaluation, best checkpoints per fusion strategy, early stopping, the
-  fine-tune stage from ``--epochs_ls``, resume, the final test), returning a
-  :class:`TrainResult`.
+* ``run_supervised``: the supervised trainer (epochs, evaluation, best
+  checkpoints per fusion strategy, early stopping, the fine-tune stage from
+  ``--epochs_ls``, resume, the final test; an ImageNet backbone from a
+  torchvision ``.pth``; with ``--from_wavs`` the frontend inside the train
+  step), returning a :class:`TrainResult`.
 
-Real data (``--synthetic_smoke`` off), ``--from_wavs``, ``--pretrain``, an
-ImageNet backbone and several processes raise ``NotImplementedError``,
-naming the ROADMAP item that brings them.  The SP-SEDT, semi-supervised and
+``--pretrain`` and several processes raise ``NotImplementedError``, naming
+the ROADMAP item that brings them.  The SP-SEDT, semi-supervised and
 audio-tag trainers wait for their slices.
 """
 from __future__ import annotations
@@ -34,13 +37,19 @@ import torch
 
 from . import config as C
 from .config import SEDTConfig
-from .data.dataset import ConcatDataset, MultiStreamBatchSampler, batch_iterator
+from .data.dataset import ConcatDataset, DataLoadDf, MultiStreamBatchSampler, WavLoadDf, batch_iterator
 from .data.encoder import BoxEncoder
 from .data.feature_bank import maybe_bank
+from .data.features import SedData, get_dfs
+from .data.scaler import Scaler
 from .data.synthetic import SyntheticDataset
+from .data.transforms import get_transforms
+from .data.tsv import unique
 from .engine import init_train_state, make_eval_step, make_train_step
 from .metrics import PSDSEval, audio_tagging_results, compute_metrics, format_audio_tagging, psds_score
 from .models import build_model, resolve_device
+from .models.torch_import import load_imagenet_backbone
+from .ops.frontend import make_frontend_fn
 from .parallel.distribute import get_reduced_loss, get_world_size
 from .utils.checkpoint import EarlyStopping, SaveBest, back_up_code, load_checkpoint, save_checkpoint
 from .utils.logger import create_logger, set_logger
@@ -296,6 +305,99 @@ def build_synthetic_data(cfg: SEDTConfig, args) -> Dict:
             "ref_valid": valid.ref_rows(), "ref_eval": valid.ref_rows()}
 
 
+def cap_strong_clips(rows: List[Dict], n: int) -> List[Dict]:
+    """The rows of the first ``n`` distinct clips, in the TSV's order: the
+    label-scarcity knob ``--max_strong_clips``, which caps only the strong
+    (synthetic) training split, where ``nb_files`` cuts every split."""
+    keep = set(unique(r["filename"] for r in rows)[:n])
+    return [r for r in rows if r["filename"] in keep]
+
+
+def real_data_paths(cfg: SEDTConfig) -> Tuple[Dict[str, str], Optional[Dict[str, str]]]:
+    """(TSV per split, audio directory per split where the metadata -> audio
+    mapping does not hold) of the dataset under ``<root>/<dataset>``."""
+    root = osp.join(cfg.data.root, cfg.data.dataset_name)
+    meta = lambda *p: osp.join(root, "metadata", *p)
+    if cfg.data.dataset_name == "urbansed":
+        return {"train": meta("train.tsv"), "validation": meta("validate.tsv"),
+                "eval": meta("test.tsv")}, None
+    # DCASE's validation audio lies at audio/validation, one level above the
+    # TSV's mapping
+    return ({"weak": meta("train", "weak.tsv"),
+             "synthetic": meta("train", "synthetic_2019", "soundscapes.tsv"),
+             "validation": meta("validation", "validation.tsv"),
+             "eval": meta("eval", "public.tsv")},
+            {"validation": osp.join(root, "audio", "validation")})
+
+
+def ref_rows(rows: List[Dict]) -> List[Tuple]:
+    """A split's ground truth for the metrics: ``(filename, onset, offset,
+    event_label)`` per row; a clip without events is one row labelled None."""
+    return [(r["filename"], r["onset"], r["offset"], r["event_label"]) for r in rows]
+
+
+def build_real_data(cfg: SEDTConfig, args) -> Dict:
+    """The datasets on disk under ``<data_root>/<dataset>``.
+
+    Each split's TSV goes through ``SedData`` (the missing ``.npy`` mel
+    amplitudes are extracted, without the dB, which the transform takes per
+    clip).  The scaler is computed over the training split (DCASE: weak then
+    synthetic) and saved at ``<exp_root>/<dataset>.json``, or loaded from
+    there when that file exists.  Training reads ``.npy`` features through
+    dB -> pad -> normalize, or with ``--from_wavs`` raw waveforms
+    (``WavLoadDf``; the returned ``frontend`` arguments build the step's
+    frontend from the same scaler); validation and eval always read
+    ``.npy``.  ``timings`` holds the seconds of the feature pass and of the
+    scaler, and the clips extracted.
+    """
+    root = osp.join(cfg.data.root, cfg.data.dataset_name)
+    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
+                 compute_log=False)
+    paths, audio_dirs = real_data_paths(cfg)
+    t0 = time.perf_counter()
+    dfs = get_dfs(ds, paths, nb_files=cfg.data.nb_files, audio_dirs=audio_dirs)
+    timings = {"features_s": time.perf_counter() - t0, "extracted": ds.n_extracted,
+               "clips": sum(len(unique(r["filename"] for r in rows)) for rows in dfs.values())}
+    if cfg.data.max_strong_clips and "synthetic" in dfs:
+        dfs["synthetic"] = cap_strong_clips(dfs["synthetic"], cfg.data.max_strong_clips)
+    enc = BoxEncoder(list(cfg.data.classes), seconds=cfg.features.max_len_seconds)
+
+    scaler = Scaler()
+    scaler_path = osp.join(cfg.data.exp_root, cfg.data.dataset_name + ".json")
+    t0 = time.perf_counter()
+    if osp.isfile(scaler_path):
+        scaler.load(scaler_path)
+    else:
+        base_tf = get_transforms(cfg.model.max_frames, None, compute_log=True)
+        pre = ConcatDataset([DataLoadDf(dfs[s], transform=base_tf)
+                             for s in (["train"] if "train" in dfs else ["weak", "synthetic"])])
+        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
+        os.makedirs(osp.dirname(scaler_path), exist_ok=True)
+        scaler.save(scaler_path)
+    timings["scaler_s"] = time.perf_counter() - t0
+
+    tf = get_transforms(cfg.model.max_frames, scaler, compute_log=True)
+    cache = cfg.data.in_memory
+    out = {"encoder": enc, "scaler": scaler, "timings": timings}
+    if getattr(args, "from_wavs", False):
+        fc = ds.fc
+        mk_train = lambda rows: WavLoadDf(
+            rows, enc.encode_strong_df, n_samples=int(cfg.features.max_len_seconds * fc.sample_rate),
+            sr=fc.sample_rate, in_memory=cache)
+        out["frontend"] = dict(sr=fc.sample_rate, n_fft=fc.n_fft, n_window=fc.n_window,
+                               hop=fc.hop_size, n_mels=fc.n_mels, scaler_mean=scaler.mean_,
+                               scaler_std=scaler.std_)
+    else:
+        mk_train = lambda rows: DataLoadDf(rows, enc.encode_strong_df, tf, in_memory=cache,
+                                           cache_transformed=cache)
+    out["train"] = (mk_train(dfs["train"]) if "train" in dfs
+                    else ConcatDataset([mk_train(dfs["synthetic"]), mk_train(dfs["weak"])]))
+    for split in ("validation", "eval"):
+        out[split] = DataLoadDf(dfs[split], enc.encode_strong_df, tf, cache_transformed=cache)
+    out["ref_valid"], out["ref_eval"] = ref_rows(dfs["validation"]), ref_rows(dfs["eval"])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # evaluation loop
 # ---------------------------------------------------------------------------
@@ -436,12 +538,15 @@ class TrainResult(NamedTuple):
     """What :func:`run_supervised` measured."""
 
     f1: Dict[int, float]  # the final test's F1 on eval, last strategy (as the JAX package)
-    # per epoch: train loss means, lr, steps and seconds; with an evaluation
-    # its loss means, F1 and timings; the checkpoint seconds
+    # per epoch: train loss means, lr, steps, seconds and the wait for
+    # batches; with an evaluation its loss means, F1 and timings; the
+    # checkpoint seconds
     epochs: List[Dict]
     final: List[Dict]  # per strategy of the final test: F1, PSDS and timings
     bank: bool  # whether the feature bank held the features
     model_dir: str
+    # on disk: seconds of the feature pass and the scaler, clips extracted
+    data_timings: Dict
 
 
 def init_model(cfg: SEDTConfig, device: torch.device):
@@ -452,9 +557,9 @@ def init_model(cfg: SEDTConfig, device: torch.device):
 
 
 def _imagenet_backbone_path(args) -> Optional[str]:
-    """The torchvision checkpoint the JAX package would load into the
-    backbone: ``--imagenet_backbone``, else ``<data_root>/<backbone>.pth``
-    when that file exists."""
+    """The torchvision checkpoint to load into the backbone:
+    ``--imagenet_backbone``, else ``<data_root>/<backbone>.pth`` when that
+    file exists."""
     path = getattr(args, "imagenet_backbone", None)
     if not path:
         auto = osp.join(args.data_root, f"{args.backbone}.pth")
@@ -462,20 +567,27 @@ def _imagenet_backbone_path(args) -> Optional[str]:
     return path
 
 
+def _imagenet_backbone_init(model, args, log) -> Optional[str]:
+    """Load the ImageNet backbone (``_imagenet_backbone_path``) into
+    ``model.backbone``, or warn that the backbone trains from scratch;
+    returns the path loaded."""
+    path = _imagenet_backbone_path(args)
+    if not path:
+        log.warning(
+            "backbone trains FROM SCRATCH — no ImageNet checkpoint found; pass "
+            f"--imagenet_backbone <torchvision .pth> (or put {args.backbone}.pth into "
+            f"{args.data_root}) for the pretrained initialization")
+        return None
+    report = load_imagenet_backbone(model.backbone, path, log=log)
+    log.info(f"initialized backbone from ImageNet weights: {path} ({len(report.loaded)} "
+             f"leaves, {len(report.skipped)} skipped)")
+    return path
+
+
 def _check_ported(args) -> None:
     """Raise for the paths of the trainer that this port does not have yet."""
-    if not args.synthetic_smoke:
-        raise NotImplementedError(
-            "training on a dataset from disk waits for the data pipeline "
-            "(ROADMAP queue 1, item 2); pass --synthetic_smoke")
-    if getattr(args, "from_wavs", False):
-        raise NotImplementedError("--from_wavs waits for the data pipeline (ROADMAP queue 1, item 2)")
     if args.pretrain:
         raise NotImplementedError("--pretrain waits for SP-SEDT (ROADMAP queue 1, item 4)")
-    if _imagenet_backbone_path(args):
-        raise NotImplementedError(
-            "an ImageNet backbone (--imagenet_backbone or <data_root>/<backbone>.pth) waits "
-            "for models/torch_import.py (ROADMAP queue 1, item 3)")
     if get_world_size() > 1:
         raise NotImplementedError("training over several processes waits for multi-GPU "
                                   "(ROADMAP queue 1, item 7)")
@@ -498,7 +610,7 @@ def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generat
     not yet fetched) and the step timer.  Batches are pinned for the card,
     and with ``bank`` their features are gathered there."""
     acc = DeviceMetricAccumulator()
-    timer = StepTimer()
+    timer = StepTimer()  # its data_time: the wait for each batch
     hb = Heartbeat(log.info, len(sampler))
     for i, batch in enumerate(batch_iterator(dataset, iter(sampler), cfg.model.max_events,
                                              cfg.features.max_len_seconds, bank=bank,
@@ -519,12 +631,16 @@ def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generat
 
 
 def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainResult:
-    """The supervised trainer on ``--synthetic_smoke``, with the final
-    test's event-based F1 on the eval set (of the last fusion strategy, as
-    the JAX package does) and what the run measured.
+    """The supervised trainer, on ``--synthetic_smoke`` data or on the
+    dataset under ``--data_root``, with the final test's event-based F1 on
+    the eval set (of the last fusion strategy, as the JAX package does) and
+    what the run measured.
 
-    Runs on ``device`` (the GPU when None).  Per epoch: the train steps, with
-    the metrics summed on the device and fetched once at the epoch's end;
+    Runs on ``device`` (the GPU when None).  The backbone starts from an
+    ImageNet checkpoint when one is named or present.  Per epoch: the train
+    steps (with ``--from_wavs`` on raw waveforms, featurised inside the step,
+    and without a feature bank: the host streams the audio), with the
+    metrics summed on the device and fetched once at the epoch's end;
     every ``eval_interval`` epochs, ``evaluate`` on the validation set and a
     best checkpoint per fusion strategy; from epoch ``epochs_ls`` on, the
     fine-tune stage.  Then the final test of each strategy's best
@@ -541,7 +657,7 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
     epochs: List[Dict] = []
     final: List[Dict] = []
 
-    data = build_synthetic_data(cfg, args)
+    data = build_synthetic_data(cfg, args) if args.synthetic_smoke else build_real_data(cfg, args)
     enc = data["encoder"]
     store_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name)
     model_dir = osp.join(store_dir, "model")
@@ -559,11 +675,9 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
     steps_per_epoch = max(len(sampler), 1)
 
     model, weight_dict = init_model(cfg, dev)
+    _imagenet_backbone_init(model, args, log)
     state = init_train_state(model, cfg, steps_per_epoch)
     log.info(f"number of parameters in the model: {sum(p.numel() for p in model.parameters())}")
-    log.warning(
-        "backbone trains FROM SCRATCH — no ImageNet checkpoint found; loading one "
-        "(--imagenet_backbone) waits for models/torch_import.py in this port")
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     best_saver = {m: SaveBest("sup") for m in cfg.train.fusion_strategy}
     early = EarlyStopping(patience=cfg.train.early_stopping_patience,
@@ -594,14 +708,22 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
             early.load_state_dict(ck["early"])
         log.info(f"resumed from {args.resume}: epoch {start_epoch} next")
 
+    frontend_fn = None
+    if data.get("frontend") is not None:  # --from_wavs
+        frontend_fn = make_frontend_fn(max_frames=cfg.model.max_frames, compute_log=True,
+                                       **data["frontend"])
+        log.info("waveform frontend inside the train step (--from_wavs)")
+
     def make_step():
         return make_train_step(model, weight_dict, cfg, state.optimizer, fine_tune=fine_tune,
                                normalize=cfg.train.normalize, fl=cfg.train.focal_loss,
-                               device=dev)
+                               frontend_fn=frontend_fn, device=dev)
 
     train_step = make_step()
     eval_step = make_eval_step(model, weight_dict, cfg, cfg.train.fusion_strategy, device=dev)
-    train_bank = maybe_bank(args, concat, cfg, dev, log=log)
+    # --from_wavs measures the streaming path: the host ships the audio of
+    # every step, so its waveforms are not banked
+    train_bank = None if frontend_fn is not None else maybe_bank(args, concat, cfg, dev, log=log)
     valid_bank = maybe_bank(args, data["validation"], cfg, dev, log=log)
     eval_bank = (valid_bank if data["eval"] is data["validation"]
                  else maybe_bank(args, data["eval"], cfg, dev, log=log))
@@ -644,7 +766,8 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
         log.info("Train averaged stats:\n" + str(mlog))
         record.update(loss=loss_mean, loss_means=dict(means, loss=loss_mean,
                                                       class_error=class_error),
-                      lr=lr_now, steps=n_steps, train_s=train_s, fine_tune=fine_tune)
+                      lr=lr_now, steps=n_steps, train_s=train_s, fine_tune=fine_tune,
+                      data_wait_s=timer.data_time.sum)
         if not math.isfinite(loss_mean):
             log.info(f"Loss is {loss_mean}, stopping training")
             raise SystemExit(1)
@@ -700,4 +823,4 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
         record.update(eval_f1=metrics[m], eval_timings=res.timings, psds=res.psds)
     return TrainResult(metrics, epochs, final,
                        bank=train_bank is not None and valid_bank is not None,
-                       model_dir=model_dir)
+                       model_dir=model_dir, data_timings=data.get("timings", {}))

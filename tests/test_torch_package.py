@@ -1,5 +1,7 @@
 """Boundaries of the PyTorch port: it imports nothing of JAX, of the JAX
-package or pandas (which the card's machine lacks), its entry points never
+package, of ``tools/`` (whose wav writer imports the JAX package's config)
+or pandas (which the card's machine lacks), at module level or inside a
+function; its entry points never
 fall back to the CPU, every kernel's wrapper
 dispatches (none raises "not ported"), and ``chip_smoke.py`` fails without a
 GPU."""
@@ -48,8 +50,23 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
-    # the port's own name starts with the JAX package's, so roots are compared whole
-    assert not (BANNED | {"pandas"}) & set(_imported_roots(path))
+    # the port's own name starts with the JAX package's, so roots are compared whole;
+    # every import statement counts, a function's too
+    assert not (BANNED | {"pandas", "tools"}) & set(_imported_roots(path))
+
+
+def test_import_scan_sees_function_level_imports(tmp_path):
+    path = tmp_path / "m.py"
+    path.write_text("import csv\n\ndef f():\n    import pandas as pd\n"
+                    "    from tools.make_wav_dataset import synth_clip\n")
+    assert set(_imported_roots(path)) == {"csv", "pandas", "tools"}
+
+
+def test_the_disk_path_modules_are_scanned():
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"data/tsv.py", "data/transforms.py", "data/collapse_event.py", "data/features.py",
+            "data/wav_dataset.py", "data/dataset.py", "models/torch_import.py",
+            "train_lib.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -67,6 +84,8 @@ def test_port_runs_without_loading_jax():
         "from sound_event_detection_transformer_tpu_torch.models import build_model\n"
         "from sound_event_detection_transformer_tpu_torch import cli, engine, metrics, predict_cli, train_lib\n"
         "from sound_event_detection_transformer_tpu_torch.data import dataset, feature_bank\n"
+        "from sound_event_detection_transformer_tpu_torch.data import collapse_event, features, transforms, tsv, wav_dataset\n"
+        "from sound_event_detection_transformer_tpu_torch.models import torch_import\n"
         "from sound_event_detection_transformer_tpu_torch.ops import augment, dropout\n"
         "from sound_event_detection_transformer_tpu_torch.parallel import optim\n"
         "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
