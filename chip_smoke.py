@@ -33,7 +33,11 @@ nvcc for sm_90a, all started together), then:
    exactly, every F1 of the trainer to 1e-3); then the same trainer on
    small seeded datasets on disk (URBAN-SED ``.npy``, URBAN-SED
    ``--from_wavs``, DCASE ``.npy`` with a weak stream; 500 and 496 frames),
-   card against CPU, each epoch's loss means to 1e-3;
+   card against CPU, each epoch's loss means to 1e-3; SP-SEDT's patch crop
+   (``extract_patches_device``) on the card against the CPU to 1e-5, and two
+   tiny SP-SEDT train steps (resnet18, d 64, 1+1 layers, feature
+   reconstruction, every patch query kept, dropout 0) card against CPU to
+   1e-3;
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
@@ -78,6 +82,30 @@ nvcc for sm_90a, all started together), then:
    batch (read, collate, pin on the host; copy and frontend on the card),
    and one more epoch of each source profiled into
    ``chiprun_out/disk_trainer_{npy,wav}_profile.txt``;
+4e. drives SP-SEDT's bare train step at the README's pretrain command
+   (``SPSEDT_RECIPE``: ResNet-50 DC5, 6+3 layers, d 256, 20 queries from 10
+   patches of 128 x 64, feature reconstruction, 496 x 64 DCASE clips,
+   dropout 0.1, bf16 autocast, lr_backbone 0) at the reference's pretrain
+   batch of 200 (2,000 crops a step, cut on the card from the target boxes)
+   through ``train_lib.spsedt_config`` and ``make_train_step``: K1 must
+   launch once a step at [600, 20, 20] and K2-K4 never; the frozen leaves,
+   the lr-0 backbone leaves and every FrozenBN buffer unchanged bit for bit;
+   it prints ms/step and clips/s, the peak memory, the busy and idle share
+   under the profiler (``chiprun_out/spsedt_step_profile.txt``), the FLOP
+   share of the bf16 peak, the patch crop's device time and K1's time on the
+   step's own cost;
+4f. drives the chain pretrain -> fine-tune at full width on disk: it writes a
+   seeded DCASE layout (``SPSEDT_CLIPS``: 400 unlabeled clips and 64 of
+   each other split, cut from DCASE 2019's sizes), runs ``run_spsedt`` on the
+   unlabeled ones (the recipe at batch 200, 2 epochs of 2 steps, the
+   ``.npy`` cache and the scaler built on the run, a checkpoint every epoch;
+   K1 exactly 4 launches, K2-K4 none), then ``run_supervised --dec_at
+   --pretrain <that checkpoint>`` for 1 epoch at batch 32 with strategies
+   1-3 (K1 4 + 14 launches), checking the surgery leaf for leaf (every
+   loaded parameter the checkpoint's, the class heads and query row 0 their
+   own, encoder layers 3-5 of the pretrain without a home, the FrozenBN
+   buffers untouched); it prints the writing, the extraction and the scaler,
+   per epoch ms/step and the data wait, and the checkpoint I/O;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -98,8 +126,8 @@ nvcc for sm_90a, all started together), then:
    really took; K4: its exponentials at an assumed special-function rate),
    times K1 also at every shape of ``K1_SHAPES`` on seeded costs, and for K4
    times the library call ``F.scaled_dot_product_attention``;
-8. profiles the 10 s evaluation step, the train step, a trainer epoch and
-   the long predict into ``chiprun_out/``.
+8. profiles the 10 s evaluation step, the train step, a trainer epoch, the
+   SP-SEDT step and the long predict into ``chiprun_out/``.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -126,7 +154,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from bench_torch import flagship_config, synthetic_batch
 from sound_event_detection_transformer_tpu_torch import train_lib
-from sound_event_detection_transformer_tpu_torch.cli import sedt_args
+from sound_event_detection_transformer_tpu_torch.cli import sedt_args, spsedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data import wav_dataset
 from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate
@@ -134,7 +162,9 @@ from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
 from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
 from sound_event_detection_transformer_tpu_torch.data.scaler import Scaler
 from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
+from sound_event_detection_transformer_tpu_torch.data.transforms import get_random_patch_boxes
 from sound_event_detection_transformer_tpu_torch.engine import (
+    Batch,
     init_train_state,
     make_eval_step,
     make_loss_fn,
@@ -158,6 +188,8 @@ from sound_event_detection_transformer_tpu_torch.ops import (
     matcher,
 )
 from sound_event_detection_transformer_tpu_torch.ops.frontend import make_frontend_fn
+from sound_event_detection_transformer_tpu_torch.ops.patches import extract_patches_device
+from sound_event_detection_transformer_tpu_torch.parallel.optim import param_label
 from sound_event_detection_transformer_tpu_torch.predict_cli import make_infer
 from sound_event_detection_transformer_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -241,6 +273,23 @@ TINY_DISK = ["--data_root", TINY_DISK_ROOT, "--batch_size", "4", "--backbone", "
              "--dim_feedforward", "128", "--epochs", "2", "--epochs_ls", "10", "--dropout", "0",
              "--compute_dtype", "float32", "--dec_at", "--fusion_strategy", "1", "2", "--log",
              "--info", "tiny"]
+# SP-SEDT: the README's pretrain command (ResNet-50 DC5, 6+3 layers, 20
+# queries from 10 patches, feature reconstruction; 496 x 64 DCASE clips) at
+# the reference's pretrain batch of 200; then the chain pretrain -> fine-tune
+# on a seeded DCASE layout (400 unlabeled clips, 64 of each other split, cut
+# from DCASE 2019's 14,412 / 2,045 / 1,578 / 1,168 / 692)
+SPSEDT_RECIPE = ["--dataname", "dcase", "--feature_recon", "--num_patches", "10",
+                 "--num_queries", "20", "--enc_layers", "6", "--batch_size", "200", "--log"]
+SPSEDT_WARMUP = 3  # recipe steps before the timed ones
+SPSEDT_STEPS = 5  # timed recipe steps
+SPSEDT_ROOT = "build/chip_spsedt_data"
+SPSEDT_EXP = "build/chip_spsedt_exp"
+SPSEDT_CLIPS = {"unlabel": 400, "strong": 64, "weak": 64, "validate": 64, "test": 64}
+SPSEDT_CHAIN = SPSEDT_RECIPE + ["--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP,
+                                "--epochs", "2", "--checkpoint_epochs", "1"]
+FINE_TUNE_CHAIN = ["--dataname", "dcase", "--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP,
+                   "--dec_at", "--batch_size", "32", "--epochs", "1", "--fusion_strategy", "1",
+                   "2", "3", "--log"]
 SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
 PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
 
@@ -873,11 +922,18 @@ def tiny_train_config() -> SEDTConfig:
 
 def small_train_step(dev: torch.device, seed: int, steps: int = 2) -> float:
     """Two tiny f32 train steps on the card against the same steps on the
-    CPU (where K1 is its plain version), from the same weights and batch,
-    TF32 off: the losses and every parameter after each step to 1e-3.
-    Returns the largest difference."""
+    CPU (where K1 is its plain version); see ``train_steps_against_cpu``."""
     cfg = tiny_train_config()
     _, batches = make_batches(cfg, 4, 1, seed)
+    return train_steps_against_cpu(cfg, batches[0], dev, seed, steps)
+
+
+def train_steps_against_cpu(cfg: SEDTConfig, batch, dev: torch.device, seed: int,
+                            steps: int) -> float:
+    """``steps`` train steps of ``cfg`` on ``batch`` on the card against the
+    same steps on the CPU, from the same weights, TF32 off: the losses and
+    every parameter after each step to 1e-3.  Returns the largest
+    difference."""
     runs = {}
     with cudnn_tf32_off():
         for d in (torch.device("cpu"), dev):
@@ -887,7 +943,7 @@ def small_train_step(dev: torch.device, seed: int, steps: int = 2) -> float:
             gen = torch.Generator(device=d).manual_seed(seed)
             runs[d.type] = []
             for _ in range(steps):
-                metrics = step(batches[0], gen)
+                metrics = step(batch, gen)
                 runs[d.type].append(({k: v.cpu() for k, v in metrics.items()},
                                      {k: v.cpu().clone() for k, v in model.state_dict().items()}))
     worst = 0.0
@@ -1027,6 +1083,31 @@ def with_lsap_costs(call) -> tuple:
     return out, seen
 
 
+def counted_launches(call) -> tuple:
+    """``call()`` with K1's launches counted apart in eval steps
+    (``train_lib.evaluate``) and elsewhere, and every LSAP cost kept:
+    (what ``call`` returns, K1 in train steps, K1 in eval steps, all counts,
+    costs).  Resets the counts first: the main path's counts."""
+    eval_launches = []
+    real_evaluate = train_lib.evaluate
+
+    def evaluate(*a, **kw):
+        before = hungarian.lsap_lane.launches
+        out = real_evaluate(*a, **kw)
+        eval_launches.append(hungarian.lsap_lane.launches - before)
+        return out
+
+    train_lib.evaluate = evaluate
+    try:
+        reset_launch_counts()  # the main path: counts from here ...
+        out, costs = with_lsap_costs(call)
+        counts = launch_counts()  # ... to here
+    finally:
+        train_lib.evaluate = real_evaluate
+    k1_eval = sum(eval_launches)
+    return out, counts["K1"] - k1_eval, k1_eval, counts, costs
+
+
 def step_flops(step, batch, gen) -> int:
     """The FLOPs of one train step as ``FlopCounterMode`` counts them on the
     port's own step (matrix products and convolutions, forward and
@@ -1108,6 +1189,7 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
     assert torch.isfinite(losses).all(), losses
     assert counts["K1"] == TRAIN_STEPS and counts["K4"] == 0 and counts["K2"] == 0, (
         f"the train step must launch K1 once a step and K4 never: {counts}")
+    launches = counts["K1"]  # the main path's, for the kernels line
     moved = [n for n, p in model.named_parameters() if p.requires_grad
              and not torch.equal(p.detach(), trainable[n])]
     assert len(moved) > 0.9 * len(trainable) and {"backbone.conv0.weight",
@@ -1163,7 +1245,7 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
     assert torch.isfinite(aug).all() and counts["K1"] == AUGMENT_STEPS, (aug, counts)
     print(f"augmented step (mixup 0.6, time and frequency masks, frequency shift): losses "
           f"{aug.tolist()}, K1 {counts['K1']} launches in {AUGMENT_STEPS} steps ({card})")
-    return {"launches": TRAIN_STEPS, "err": k1_err, "shape": list(cost.shape), "timing": timing}
+    return {"launches": launches, "err": k1_err, "shape": list(cost.shape), "timing": timing}
 
 
 # --------------------------------------------------------------- trainer
@@ -1193,27 +1275,11 @@ def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: flo
     shutil.rmtree(TRAIN_ROOT, ignore_errors=True)  # every checkpoint checked is this run's
     n_valid = max(8, args.smoke_clips // 4)  # build_synthetic_data's validation and eval set
     want = trainer_launches(args, args.smoke_clips, n_valid, n_valid)
-    eval_launches = []
-    real_evaluate = train_lib.evaluate
-
-    def evaluate(*a, **kw):  # counts the eval steps' K1 launches apart
-        before = hungarian.lsap_lane.launches
-        out = real_evaluate(*a, **kw)
-        eval_launches.append(hungarian.lsap_lane.launches - before)
-        return out
-
-    train_lib.evaluate = evaluate
-    try:
-        reset_launch_counts()  # the main path: counts from here ...
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result, costs = with_lsap_costs(lambda: train_lib.run_supervised(args, device=dev))
-        wall_s = time.perf_counter() - t0
-        counts = launch_counts()  # ... to here
-    finally:
-        train_lib.evaluate = real_evaluate
-    k1_eval = sum(eval_launches)
-    k1_train = counts["K1"] - k1_eval
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result, k1_train, k1_eval, counts, costs = counted_launches(
+        lambda: train_lib.run_supervised(args, device=dev))
+    wall_s = time.perf_counter() - t0
     assert (k1_train, k1_eval) == (want["train"], want["eval"]), (
         f"K1 launched {k1_train} times in train steps and {k1_eval} in eval steps, "
         f"not {want['train']} and {want['eval']}")
@@ -1343,14 +1409,8 @@ def run_disk_trainer(args, dev: torch.device, want: dict, imagenet: dict) -> dic
     the model's parameter count.  Checks the backbone as loaded (the file's
     values leaf for leaf, conv0 its own init), the launch counts, the losses
     and that every best checkpoint loads back."""
-    eval_launches, loaded = [], []
-    real_evaluate, real_init = train_lib.evaluate, train_lib._imagenet_backbone_init
-
-    def evaluate(*a, **kw):  # counts the eval steps' K1 launches apart
-        before = hungarian.lsap_lane.launches
-        out = real_evaluate(*a, **kw)
-        eval_launches.append(hungarian.lsap_lane.launches - before)
-        return out
+    loaded = []
+    real_init = train_lib._imagenet_backbone_init
 
     def backbone_init(model, a, log):
         conv0 = {k: v.clone() for k, v in model.backbone.conv0.state_dict().items()}
@@ -1365,18 +1425,15 @@ def run_disk_trainer(args, dev: torch.device, want: dict, imagenet: dict) -> dic
         loaded.append(path)
         return path
 
-    train_lib.evaluate, train_lib._imagenet_backbone_init = evaluate, backbone_init
+    train_lib._imagenet_backbone_init = backbone_init
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()  # the main path: counts from here ...
-        result, costs = with_lsap_costs(lambda: train_lib.run_supervised(args, device=dev))
-        counts = launch_counts()  # ... to here
+        result, k1_train, k1_eval, counts, costs = counted_launches(
+            lambda: train_lib.run_supervised(args, device=dev))
     finally:
-        train_lib.evaluate, train_lib._imagenet_backbone_init = real_evaluate, real_init
+        train_lib._imagenet_backbone_init = real_init
     peak = torch.cuda.max_memory_allocated(dev)
-    k1_eval = sum(eval_launches)
-    k1_train = counts["K1"] - k1_eval
     assert loaded, "the trainer did not load the ImageNet backbone"
     assert (k1_train, k1_eval) == (want["train"], want["eval"]), (
         f"K1 launched {k1_train} times in train steps and {k1_eval} in eval steps, "
@@ -1539,6 +1596,281 @@ def small_disk_trainers(dev: torch.device) -> float:
         print(f"tiny disk trainer {' '.join(extra[1:])}, card vs CPU: {len(pairs)} loss means "
               f"agree to 1e-3")
     return worst
+
+
+# --------------------------------------------------------------- SP-SEDT
+
+
+def spsedt_batch(cfg: SEDTConfig, batch: int, seed: int) -> Batch:
+    """``batch`` unlabeled synthetic clips at the config's geometry, each
+    with ``num_patches`` random patch boxes as its targets (drawn from a
+    seeded stream), on the CPU."""
+    m = cfg.model
+    enc = BoxEncoder(1, cfg.features.max_len_seconds, generate_patch=True)
+    ds = SyntheticDataset(batch, cfg.data.classes, m.max_frames, m.n_mels, enc.encode_strong_df,
+                          max_events=2, seed=seed, unlabel=True, num_patches=m.num_patches,
+                          rng=np.random.RandomState(seed))
+    return collate([ds[i] for i in range(batch)], m.max_events, cfg.features.max_len_seconds)
+
+
+def tiny_spsedt_config() -> SEDTConfig:
+    """The tiny f32 config as SP-SEDT: resnet18, d 64, 1+1 layers, 6 queries
+    from 3 patches, feature reconstruction, every patch query kept and
+    dropout 0 (so no random draw decides anything), lr_backbone 0."""
+    cfg = tiny_train_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, self_sup=True, dec_at=False, dec_layers=1,
+                                  num_patches=3, feature_recon=True, mask_ratio=0.0),
+        train=dataclasses.replace(cfg.train, lr_backbone=0.0))
+
+
+def patch_crop_against_cpu(dev: torch.device, seed: int) -> float:
+    """``extract_patches_device`` on the card against the CPU on the recipe's
+    geometry (496 x 64 clips, 10 boxes each) and on a 100 x 48 one (which
+    resizes along F too), to 1e-5; returns the largest difference."""
+    rng = np.random.RandomState(seed)
+    worst = 0.0
+    for t, f in ((496, 64), (100, 48)):
+        feats = torch.from_numpy(rng.randn(8, t, f, 1).astype(np.float32))
+        boxes = torch.from_numpy(np.stack([get_random_patch_boxes(t, 10, rng=rng)
+                                           for _ in range(8)]))
+        ref = extract_patches_device(feats, boxes)
+        got = extract_patches_device(feats.to(dev), boxes.to(dev)).cpu()
+        assert got.shape == ref.shape == (8, 10, 128, 64, 1), got.shape
+        assert torch.allclose(got, ref, rtol=0, atol=1e-5), float((got - ref).abs().max())
+        worst = max(worst, float((got - ref).abs().max()))
+    return worst
+
+
+def small_spsedt_step(dev: torch.device, seed: int, steps: int = 2) -> float:
+    """Two tiny f32 SP-SEDT train steps (``tiny_spsedt_config``, the crops
+    cut on each device) on the card against the CPU; see
+    ``train_steps_against_cpu``."""
+    cfg = tiny_spsedt_config()
+    return train_steps_against_cpu(cfg, spsedt_batch(cfg, 4, seed), dev, seed, steps)
+
+
+def leaves_by_rule(model) -> dict:
+    """Copies of the model's frozen leaves, lr-0 backbone leaves, main
+    leaves and FrozenBN buffers, to check a step against."""
+    out = {"frozen": {}, "backbone": {}, "main": {}}
+    for n, p in model.named_parameters():
+        out[param_label(n)][n] = p.detach().clone()
+    out["buffers"] = {n: b.clone() for n, b in model.named_buffers()}
+    return out
+
+
+def check_spsedt_leaves(model, before: dict) -> int:
+    """After SP-SEDT steps: the frozen leaves, the lr-0 backbone leaves and
+    the FrozenBN buffers bit for bit as they were, most main leaves moved
+    (those without a gradient only decay); returns how many moved."""
+    now = dict(model.named_parameters())
+    for group in ("frozen", "backbone"):
+        assert before[group], f"no {group} leaves"
+        for n, v in before[group].items():
+            assert torch.equal(now[n].detach(), v), f"{group} parameter {n} changed"
+            assert now[n].requires_grad == (group == "backbone"), n
+    for n, b in model.named_buffers():
+        assert torch.equal(b, before["buffers"][n]), f"FrozenBN buffer {n} changed"
+    moved = sum(not torch.equal(now[n].detach(), v) for n, v in before["main"].items())
+    assert moved > 0.9 * len(before["main"]), (moved, len(before["main"]))
+    return moved
+
+
+def patch_crop_bound(feats: torch.Tensor, boxes: torch.Tensor, out: torch.Tensor) -> dict:
+    """The crop's least time: the features and boxes read once and the crops
+    written once over the memory rate (its few operations an element are far
+    below the f32 rate)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (feats, boxes, out))
+    return {"ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
+def run_spsedt_step_phase(dev: torch.device, card: str, latency: dict, clock_hz: float) -> dict:
+    """Phase 4e: the recipe's bare SP-SEDT step at batch 200
+    (``SPSEDT_RECIPE``: ResNet-50 DC5, 6+3 layers, 20 queries from 10
+    patches, feature reconstruction, 496 x 64, dropout 0.1, bf16 autocast,
+    lr_backbone 0) through ``make_train_step``, the batch on the card: K1
+    once a step at [600, 20, 20] and K2-K4 never; the frozen leaves, the
+    lr-0 backbone leaves and the FrozenBN buffers bit for bit.  Returns K1's
+    launches, parity error and timing on the step's own cost."""
+    args = spsedt_args(SPSEDT_RECIPE)
+    cfg = train_lib.spsedt_config(args)
+    m = cfg.model
+    bs = cfg.data.batch_size
+    model, wd = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = init_train_state(model, cfg, steps_per_epoch=100)
+    step = make_train_step(model, wd, cfg, state.optimizer, augment_on=False, device=dev)
+    cpu = spsedt_batch(cfg, bs, SEED)
+    batch = Batch(feats=cpu.feats.to(dev), pad_mask=cpu.pad_mask.to(dev),
+                  targets=type(cpu.targets)(*(t.to(dev) for t in cpu.targets)),
+                  strong=cpu.strong.to(dev), weak=cpu.weak.to(dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"SP-SEDT step: {describe(cfg, bs, n_params)}, {m.num_patches} patches of 128 x 64 a "
+          f"clip, feature_recon {m.feature_recon}, mask ratio {m.mask_ratio}, dropout "
+          f"{m.dropout}, lr_backbone {cfg.train.lr_backbone}")
+    before = leaves_by_rule(model)
+
+    _, costs = with_lsap_costs(lambda: step(batch, gen))  # warm-up 1, its cost kept
+    (cost,) = costs
+    assert cost.shape == (m.dec_layers * bs, m.num_queries, m.max_events), cost.shape
+    k1_err = k1_against_references(cost.cpu().numpy(), dev, "the SP-SEDT step's own cost")
+    for _ in range(SPSEDT_WARMUP - 1):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_launch_counts()  # the main path: counts from here ...
+    losses = []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SPSEDT_STEPS):
+        losses.append(step(batch, gen)["loss"])
+    stop.record()
+    stop.synchronize()
+    host_s = (time.perf_counter() - t0) / SPSEDT_STEPS
+    counts = launch_counts()  # ... to here
+    event_ms = start.elapsed_time(stop) / SPSEDT_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    assert torch.isfinite(losses).all(), losses
+    assert counts["K1"] == SPSEDT_STEPS and counts["K2"] == counts["K3"] == counts["K4"] == 0, (
+        f"the SP-SEDT step must launch K1 once a step and K2-K4 never: {counts}")
+    moved = check_spsedt_leaves(model, before)
+    print(f"SP-SEDT step: {event_ms:.3f} ms/step by CUDA events, {bs / event_ms * 1e3:.1f} "
+          f"clips/s ({bs * m.num_patches / event_ms * 1e3:.1f} patches/s); {host_s * 1e3:.3f} "
+          f"ms/step by the host clock; {SPSEDT_STEPS} steps, K1 {counts['K1']} launches at "
+          f"{list(cost.shape)}, K2-K4 none; losses {losses[0]:.4f} .. {losses[-1]:.4f}; "
+          f"{moved} of {len(before['main'])} main leaves moved, {len(before['backbone'])} lr-0 "
+          f"backbone leaves, {len(before['frozen'])} frozen ones and {len(before['buffers'])} "
+          f"FrozenBN buffers unchanged bit for bit; peak memory {peak / 2**30:.3f} GiB ({card})")
+    flops = step_flops(step, batch, gen)
+    print(f"SP-SEDT step: {flops / 1e9:.1f} GFLOP a step counted by FlopCounterMode, "
+          f"{flops / bs / 1e9:.2f} GFLOP a clip with its patches; at {event_ms:.3f} ms that is "
+          f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+          f"{flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} of the dense bf16 peak ({card})")
+    profile(lambda: step(batch, gen), 2, "SP-SEDT step", card, "spsedt_step_profile.txt")
+    boxes = batch.targets.boxes[:, :m.num_patches]
+    crop = extract_patches_device(batch.feats, boxes)
+    crop_ms = device_ms(lambda: extract_patches_device(batch.feats, boxes))
+    bound = patch_crop_bound(batch.feats, boxes, crop)
+    print(f"SP-SEDT patch crop {list(crop.shape)}: {crop_ms:.5f} ms on the device, bound "
+          f"{bound['ms']:.5f} ms by bytes ({bound['bytes']} B) ({card})")
+    timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 3, latency,
+                     clock_hz)
+    return {"launches": counts["K1"], "err": k1_err, "shape": list(cost.shape), "timing": timing}
+
+
+def checked_pretrain_load(record: dict):
+    """``train_lib.load_pretrain_into`` checking, right after the load, the
+    surgery's rules: every parameter loaded equals the checkpoint's (the
+    query table's rows 1:), the class heads and query row 0 keep their
+    values, parameters the checkpoint lacks (or has at another shape) too,
+    and the FrozenBN buffers are untouched."""
+    real = train_lib.load_pretrain_into
+
+    def load(model, state):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loaded = real(model, state)
+        after = model.state_dict()
+        buffers = {n for n, _ in model.named_buffers()}
+        for n, v in after.items():
+            old = state.get(n)
+            if n == "query_embed.weight":
+                assert torch.equal(v[1:].cpu(), old) and torch.equal(v[0], before[n][0]), n
+            elif n in buffers or "class_embed" in n or old is None or old.shape != v.shape:
+                assert n not in loaded and torch.equal(v, before[n]), n
+            else:
+                assert n in loaded and torch.equal(v.cpu(), old), n
+        record.update(loaded=loaded, kept=len(after) - len(loaded),
+                      dropped=sorted(k for k in state if k not in after))
+        return loaded
+
+    return load
+
+
+def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
+    """Phase 4f: pretrain -> fine-tune at full width on disk.  It writes a
+    seeded DCASE layout (``SPSEDT_CLIPS``), runs ``run_spsedt`` on its
+    unlabeled clips (``SPSEDT_CHAIN``: the recipe at batch 200, 2 epochs of
+    2 steps, the ``.npy`` cache and the scaler built on the run, a checkpoint
+    every epoch; K1 4 launches, K2-K4 none), then ``run_supervised --dec_at
+    --pretrain <its checkpoint>`` for 1 epoch at batch 32 (16 strong and 16
+    weak clips a step; strategies 1-3), whose surgery is checked leaf for
+    leaf.  Returns K1's launches."""
+    shutil.rmtree(SPSEDT_ROOT, ignore_errors=True)
+    shutil.rmtree(SPSEDT_EXP, ignore_errors=True)
+    t0 = time.perf_counter()
+    wav_dataset.write_dcase(SPSEDT_ROOT, seed=SEED, **SPSEDT_CLIPS)
+    write_s = time.perf_counter() - t0
+    n = sum(SPSEDT_CLIPS.values())
+    print(f"SP-SEDT chain dataset: {n} DCASE clips of 10 s at 16 kHz ({SPSEDT_CLIPS}) written "
+          f"in {write_s:.3f} s, {write_s / n * 1e3:.3f} ms a clip ({card})")
+    args = spsedt_args(SPSEDT_CHAIN)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pre, k1, _, counts, _ = counted_launches(lambda: train_lib.run_spsedt(args, device=dev))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = SPSEDT_CLIPS["unlabel"] // args.batch_size
+    assert k1 == args.epochs * steps and counts["K2"] == counts["K3"] == counts["K4"] == 0, (
+        f"the pretrainer must launch K1 once a step and K2-K4 never: {counts}")
+    assert [e["epoch"] for e in pre.epochs] == list(range(args.epochs))
+    assert all(np.isfinite(e["loss"]) and e["steps"] == steps for e in pre.epochs), pre.epochs
+    assert pre.bank, "the pretrainer did not hold its features in a bank"
+    names = sorted(p.name for p in Path(pre.model_dir).iterdir())
+    assert names == sorted([args.info] + [f"{args.info}_{e}" for e in range(args.epochs)]), names
+    d = pre.data_timings
+    assert d["extracted"] == d["clips"] == SPSEDT_CLIPS["unlabel"], d
+    print(f"SP-SEDT pretrainer ({args.info}): {wall_s:.3f} s in all; feature extraction "
+          f"{d['extracted']} clips in {d['features_s']:.3f} s, "
+          f"{d['features_s'] / d['extracted'] * 1e3:.3f} ms a clip; scaler pass "
+          f"{d['scaler_s']:.3f} s; K1 {k1} launches, K2-K4 none; peak memory "
+          f"{peak / 2**30:.3f} GiB ({card})")
+    ckpt_s = d["final_checkpoint_s"]
+    for e in pre.epochs:
+        ckpt_s += e.get("checkpoint_s", 0.0)
+        print(f"SP-SEDT pretrainer epoch {e['epoch']}: loss {e['loss']:.4f}, "
+              f"{e['train_s'] / e['steps'] * 1e3:.3f} ms/step, "
+              f"{args.batch_size * e['steps'] / e['train_s']:.1f} clips/s, data wait "
+              f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step; checkpoint I/O "
+              f"{e.get('checkpoint_s', 0.0):.3f} s ({card})")
+    print(f"SP-SEDT pretrainer: checkpoint I/O {ckpt_s:.3f} s in all, the final one "
+          f"{d['final_checkpoint_s']:.3f} s ({card})")
+
+    ft_args = sedt_args(FINE_TUNE_CHAIN + ["--pretrain", args.info])
+    want = trainer_launches(ft_args, SPSEDT_CLIPS["strong"] + SPSEDT_CLIPS["weak"],
+                            SPSEDT_CLIPS["validate"], SPSEDT_CLIPS["test"])
+    surgery: dict = {}
+    real_load = train_lib.load_pretrain_into
+    train_lib.load_pretrain_into = checked_pretrain_load(surgery)
+    try:
+        t0 = time.perf_counter()
+        ft, k1_train, k1_eval, counts, _ = counted_launches(
+            lambda: train_lib.run_supervised(ft_args, device=dev))
+        wall_s = time.perf_counter() - t0
+    finally:
+        train_lib.load_pretrain_into = real_load
+    assert surgery, "the fine-tune did not load the pretrain checkpoint"
+    assert (k1_train, k1_eval) == (want["train"], want["eval"]), (
+        f"K1 launched {k1_train} times in train steps and {k1_eval} in eval steps, "
+        f"not {want['train']} and {want['eval']}")
+    assert counts["K2"] == counts["K3"] == counts["K4"] == 0, counts
+    assert all(np.isfinite(e["loss"]) for e in ft.epochs), ft.epochs
+    assert [r["fusion_strategy"] for r in ft.final] == list(ft_args.fusion_strategy)
+    dropped = [k for k in surgery["dropped"] if k.startswith("transformer.encoder_layer_")]
+    assert {k.split(".")[1] for k in dropped} == {
+        f"encoder_layer_{i}" for i in range(ft_args.enc_layers, args.enc_layers)}, dropped
+    e = ft.epochs[0]
+    print(f"SP-SEDT fine-tune ({ft_args.info}): {len(surgery['loaded'])} parameters loaded from "
+          f"{args.info}, {surgery['kept']} entries kept (class heads, query row 0, FrozenBN "
+          f"buffers), {len(surgery['dropped'])} checkpoint entries without a home (the patch "
+          f"heads, encoder layers {ft_args.enc_layers}-{args.enc_layers - 1}); {wall_s:.3f} s in all; loss {e['loss']:.4f}, "
+          f"{e['train_s'] / e['steps'] * 1e3:.3f} ms/step, data wait "
+          f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step; K1 {k1_train} launches in train "
+          f"steps, {k1_eval} in eval steps, K2-K4 none; F1 {ft.f1} ({card})")
+    return {"pretrain": k1, "fine_tune": k1_train + k1_eval}
 
 
 # --------------------------------------------------------------- predict
@@ -1743,7 +2075,7 @@ def describe(cfg: SEDTConfig, batch: int, n_params: int) -> str:
     m = cfg.model
     return (f"{m.backbone} dilation={m.dilation} enc/dec {m.enc_layers}/{m.dec_layers} "
             f"d {m.hidden_dim} heads {m.nheads} ffn {m.dim_feedforward} queries {m.num_queries}"
-            f"+dec_at slots {m.max_events} input {m.max_frames}x{m.n_mels} batch {batch} "
+            f"{'+dec_at' if m.dec_at else ''} slots {m.max_events} input {m.max_frames}x{m.n_mels} batch {batch} "
             f"compute {m.compute_dtype}, {n_params} parameters")
 
 
@@ -1784,6 +2116,11 @@ def main() -> None:
     worst = small_disk_trainers(dev)
     print(f"tiny f32 trainers on disk (URBAN-SED .npy and --from_wavs, DCASE .npy), 2 epochs, "
           f"card vs CPU: ok, max |loss mean difference| {worst:.3g}")
+    worst = patch_crop_against_cpu(dev, SEED)
+    print(f"SP-SEDT patch crop, card vs CPU: ok, max |difference| {worst:.3g}")
+    worst = small_spsedt_step(dev, SEED)
+    print(f"tiny f32 SP-SEDT step, 2 steps, card vs CPU: ok, max |loss or parameter difference| "
+          f"{worst:.3g}")
 
     # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
@@ -1844,6 +2181,15 @@ def main() -> None:
     # 4d. the flagship trainer on a dataset on disk, .npy and --from_wavs
     disk = run_disk_phase(dev, card, latency, clock_hz)
     errs["K1"] = max(errs["K1"], disk["err"])
+    torch.cuda.empty_cache()
+
+    # 4e. SP-SEDT: the recipe's bare step at batch 200
+    spsedt = run_spsedt_step_phase(dev, card, latency, clock_hz)
+    errs["K1"] = max(errs["K1"], spsedt["err"])
+    torch.cuda.empty_cache()
+
+    # 4f. SP-SEDT pretrain -> fine-tune at full width on a DCASE layout on disk
+    chain = run_spsedt_chain_phase(dev, card)
     torch.cuda.empty_cache()
 
     # 5. long-clip predict at the flagship's width
@@ -1933,6 +2279,12 @@ def main() -> None:
          "shape": disk["shape"], "launches": disk["launches"],
          "launches_from_wavs": disk["wav_launches"],
          "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **disk["timing"]},
+        {"name": "K1 lsap_lane SP-SEDT", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": spsedt["shape"], "launches": spsedt["launches"],
+         "launches_pretrain_chain": chain["pretrain"],
+         "launches_fine_tune_chain": chain["fine_tune"],
+         "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **spsedt["timing"]},
         {"name": "K2 lsap_block", "source": hungarian_src,
          "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
          "shape": shapes["K2"], "launches": launches["K2"],

@@ -1,7 +1,8 @@
-"""Console entry point of the port's supervised trainer.
+"""Console entry points of the port's trainers.
 
-Counterpart of the JAX package's ``cli.main_sedt``: the repo-root script
-``train_sedt_torch.py`` and the installed ``sedt-train-torch`` command both
+Counterpart of the JAX package's ``cli.main_sedt`` and ``cli.main_spsedt``:
+the repo-root scripts ``train_sedt_torch.py`` and ``train_spsedt_torch.py``
+and the installed ``sedt-train-torch`` and ``sedt-pretrain-torch`` commands
 land here, so the flag defaulting lives in one place.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .train_lib import TrainResult, get_parser, run_supervised
+from .train_lib import PretrainResult, TrainResult, get_parser, run_spsedt, run_supervised
 
 
 def sedt_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -39,3 +40,29 @@ def main_sedt(argv: Optional[Sequence[str]] = None,
               device: Optional[torch.device | str] = None) -> TrainResult:
     """Supervised training and evaluation on the GPU (``device`` for tests)."""
     return run_supervised(sedt_args(argv), device=device)
+
+
+def spsedt_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The SP-SEDT pretrainer's arguments: the trainer's flags and
+    ``--extra_data``; DCASE or ``--synthetic_smoke`` only, and ``--info``
+    defaults to ``pretrain_enc_<n>`` with ``_feature_recon`` and
+    ``_fixed_patch_size`` as those flags are set."""
+    parser = get_parser()
+    parser.add_argument("--extra_data", action="store_true", default=False,
+                        help="also pretrain on DCASE 2018 task 5 (dcase2018_task5.tsv)")
+    args = parser.parse_args(argv)
+    if args.dataname != "dcase" and not args.synthetic_smoke:
+        parser.error("SP-SEDT pretrains on the dcase dataset (or --synthetic_smoke) only")
+    if args.info is None:
+        args.info = f"pretrain_enc_{args.enc_layers}"
+        if args.feature_recon:
+            args.info += "_feature_recon"
+        if args.fixed_patch_size:
+            args.info += "_fixed_patch_size"
+    return args
+
+
+def main_spsedt(argv: Optional[Sequence[str]] = None,
+                device: Optional[torch.device | str] = None) -> PretrainResult:
+    """SP-SEDT self-supervised pretraining on the GPU (``device`` for tests)."""
+    return run_spsedt(spsedt_args(argv), device=device)

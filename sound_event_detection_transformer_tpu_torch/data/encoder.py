@@ -19,35 +19,39 @@ from ..models.criterion import DenseTargets
 
 
 class BoxEncoder:
-    """Strong/weak event labels <-> normalized (center, length) boxes."""
+    """Strong/weak event labels <-> normalized (center, length) boxes.
 
-    def __init__(self, labels, seconds: float):
+    With ``generate_patch`` (SP-SEDT) every encoding also carries an empty
+    ``patches`` list, which the dataset fills with host crops or drops when
+    the crops are gathered on the device."""
+
+    def __init__(self, labels, seconds: float, generate_patch: bool = False):
         if isinstance(labels, np.ndarray):
             labels = labels.tolist()
         self.labels = list(labels) if not isinstance(labels, int) else labels
         self.seconds = seconds
+        self.generate_patch = generate_patch
+
+    def _out(self, labels, boxes) -> Dict[str, np.ndarray]:
+        y = {"labels": labels, "boxes": boxes, "orig_size": np.asarray(self.seconds)}
+        if self.generate_patch:
+            y["patches"] = []
+        return y
 
     def _index(self, label: str) -> int:
         return 0 if isinstance(self.labels, int) else int(self.labels.index(label))
 
     def encode_unlabel(self, boxes) -> Dict[str, np.ndarray]:
         """Patch or unlabeled encoding: class 0 for every box."""
-        return {
-            "labels": np.asarray([0] * len(boxes), dtype=np.int64),
-            "boxes": np.asarray(boxes, dtype=np.float32),
-            "orig_size": np.asarray(self.seconds),
-        }
+        return self._out(np.asarray([0] * len(boxes), dtype=np.int64),
+                         np.asarray(boxes, dtype=np.float32))
 
     def encode_weak(self, labels) -> Dict[str, np.ndarray]:
         """Clip-level labels ("a,b", "empty" or a list) -> class ids only."""
         if isinstance(labels, str):
             labels = [] if labels == "empty" else labels.split(",")
         ids = [self._index(lbl) for lbl in labels if not missing_label(lbl)]
-        return {
-            "labels": np.asarray(ids, dtype=np.int64),
-            "boxes": np.zeros((0,), dtype=np.float32),
-            "orig_size": np.asarray(self.seconds),
-        }
+        return self._out(np.asarray(ids, dtype=np.int64), np.zeros((0,), dtype=np.float32))
 
     def encode_strong_df(self, label_list) -> Dict[str, np.ndarray]:
         """[[label, onset_s, offset_s], ...], one file's rows
@@ -73,11 +77,7 @@ class BoxEncoder:
                         add(ev[3], ev[1], ev[2])
                 else:
                     raise NotImplementedError(type(ev))
-        return {
-            "labels": np.asarray(labels, dtype=np.int64),
-            "boxes": np.asarray(boxes, dtype=np.float32),
-            "orig_size": np.asarray(self.seconds),
-        }
+        return self._out(np.asarray(labels, dtype=np.int64), np.asarray(boxes, dtype=np.float32))
 
     def decode_weak(self, labels) -> List[str]:
         return [self.labels[i] for i, v in enumerate(labels) if v == 1]

@@ -4,9 +4,11 @@ package's ``data/synthetic.py``, so one seed gives the same clips on both
 sides."""
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .transforms import get_random_patch_boxes
 
 
 def make_clip(
@@ -41,6 +43,14 @@ class SyntheticDataset:
     Labels are strong by default, clip-level with ``weak_only`` and "empty"
     with ``unlabel``.  Clip ``i`` of seed ``s`` is named
     ``synthetic_{s}_{i}.wav``, as in the JAX package.
+
+    With ``num_patches`` (SP-SEDT) every call draws that many random patch
+    boxes from ``rng`` and they replace the labels (class 0 each); the
+    train step crops the patches on the device from the boxes (the JAX
+    package's ``device_patches``; there is no host crop here).  The JAX
+    package draws the boxes from numpy's global stream; a caller that seeds
+    ``rng`` as that stream was seeded, and draws from it in the same order,
+    gets the same boxes.
     """
 
     def __init__(
@@ -55,7 +65,13 @@ class SyntheticDataset:
         seed: int = 0,
         weak_only: bool = False,
         unlabel: bool = False,
+        num_patches: Optional[int] = None,
+        fixed_patch_size: bool = False,
+        rng: Optional[np.random.RandomState] = None,
     ):
+        self.num_patches = num_patches
+        self.fixed_patch_size = fixed_patch_size
+        self.patch_rng = rng or np.random.RandomState()
         rng = np.random.RandomState(seed)
         self.encode_function = encode_function
         self.items = []
@@ -89,10 +105,26 @@ class SyntheticDataset:
         data = self.items[idx][0]
         return data, data.shape[0]
 
+    def _with_patch_boxes(self, y, t: int):
+        """``y`` with fresh patch boxes over ``t`` frames as its targets."""
+        boxes = get_random_patch_boxes(t, self.num_patches,
+                                       fixed_patch_size=self.fixed_patch_size,
+                                       rng=self.patch_rng)
+        return dict(y, labels=np.zeros(len(boxes), np.int64), boxes=boxes)
+
     def targets_only(self, idx: int, t_raw: int):
-        """The label dict of ``dataset[idx]``, without the features."""
-        return self.encode_function(self.items[idx][1])
+        """The label dict of ``dataset[idx]``, without the features; on the
+        patch path it draws fresh boxes, as ``dataset[idx]`` would."""
+        y = self.encode_function(self.items[idx][1])
+        if self.num_patches is not None:
+            y = self._with_patch_boxes(y, t_raw)
+            y.pop("patches", None)  # crops are gathered on the device
+        return y
 
     def __getitem__(self, idx: int):
         data, label_arg = self.items[idx]
-        return data, self.encode_function(label_arg)
+        y = self.encode_function(label_arg)
+        if self.num_patches is not None:
+            y = self._with_patch_boxes(y, data.shape[0])
+            y.pop("patches", None)  # crops are gathered on the device
+        return data, y

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``engine.py``:
 
 * ``make_train_step``: the supervised step (optional frontend on waveforms,
   augmentation, the forward with dropout, the set criterion with its
-  Hungarian matching on kernel K1 or K2, backward, clip, two-group AdamW);
+  Hungarian matching on kernel K1 or K2, backward, clip, two-group AdamW),
+  and with a ``self_sup`` config the SP-SEDT step (the patch crops gathered
+  on the device from the target boxes, the patch-query forward, the
+  criterion with the feature-reconstruction loss);
 * ``make_eval_step``: the deterministic forward, the set criterion (one joint
   Hungarian solve of the final and aux decoder layers) and the fusion
   post-processing, with the same result dict.
@@ -24,6 +27,7 @@ from .config import SEDTConfig
 from .models import postprocess, resolve_device, set_criterion, total_loss
 from .models.criterion import DenseTargets
 from .ops import augment
+from .ops.patches import extract_patches_device
 from .parallel.optim import SEDTOptimizer, make_optimizer
 
 
@@ -118,13 +122,18 @@ def _apply_augment(cfg: SEDTConfig, feats: torch.Tensor, targets: DenseTargets,
 
 def make_loss_fn(model: torch.nn.Module, weight_dict: Dict[str, float], cfg: SEDTConfig,
                  fine_tune: bool = False, normalize: bool = False, fl: bool = False):
-    """``loss_fn(feats, pad_mask, targets, strong, weak, generator)`` ->
-    (weighted loss, the criterion's losses): the training forward (dropout
-    on, masks and the relaxed matching's draws from ``generator``) and the
-    set criterion, differentiable with respect to the model's parameters."""
+    """``loss_fn(feats, pad_mask, targets, strong, weak, generator,
+    patches=None)`` -> (weighted loss, the criterion's losses): the training
+    forward (dropout on; the masks, SP-SEDT's query shuffle and keep mask,
+    and the relaxed matching's draws from ``generator``) and the set
+    criterion, differentiable with respect to the model's parameters.
+    ``patches`` ([B, P, ph, pw, 1]) goes to an :class:`~.models.SPSEDT`."""
 
-    def loss_fn(feats, pad_mask, targets, strong, weak, generator):
-        out = model(feats, pad_mask, deterministic=False, generator=generator)
+    def loss_fn(feats, pad_mask, targets, strong, weak, generator, patches=None):
+        if patches is not None:
+            out = model(feats, pad_mask, patches, deterministic=False, generator=generator)
+        else:
+            out = model(feats, pad_mask, deterministic=False, generator=generator)
         losses, _ = set_criterion(out, targets, strong, weak, cfg.model, cfg.loss,
                                   fine_tune=fine_tune, normalize=normalize, fl=fl,
                                   generator=generator)
@@ -153,8 +162,11 @@ def make_train_step(
     ``batch.feats`` carries raw waveforms [B, num_samples] and the step
     featurises them first, with an all-False pad mask.  ``generator`` (on
     ``device``) draws the augmentations, the dropout masks and the relaxed
-    matching, in that order.  The metrics are ``{"loss", **losses}`` as
-    tensors on the device; the step makes no host sync.
+    matching, in that order (SP-SEDT: the query shuffle and keep mask before
+    the dropout masks).  With a ``self_sup`` config the step crops the
+    patches on the device from the first ``num_patches`` target boxes of the (augmented) features.  The
+    metrics are ``{"loss", **losses}`` as tensors on the device; the step
+    makes no host sync.
     """
     dev = resolve_device(device)
     param = next(model.parameters())
@@ -175,7 +187,11 @@ def make_train_step(
             if augment_on:
                 feats, targets, strong, weak = _apply_augment(cfg, feats, targets, strong,
                                                               weak, generator)
-            loss, losses = loss_fn(feats, pad_mask, targets, strong, weak, generator)
+            patches = None
+            if cfg.model.self_sup:
+                patches = extract_patches_device(feats,
+                                                 targets.boxes[:, :cfg.model.num_patches])
+            loss, losses = loss_fn(feats, pad_mask, targets, strong, weak, generator, patches)
             loss.backward()
         optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}

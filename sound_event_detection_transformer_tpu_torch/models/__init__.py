@@ -1,6 +1,7 @@
-"""Model zoo of the port: SEDT and its criterion and post-processing."""
+"""Model zoo of the port: SEDT, SP-SEDT, their criterion and post-processing."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -9,11 +10,12 @@ from ..config import SEDTConfig
 from .criterion import DenseTargets, build_weight_dict, empty_targets, set_criterion, total_loss
 from .postprocess import PostProcessResult, postprocess
 from .resnet import ResNetBackbone, num_backbone_channels
-from .sedt import MLP, SEDT
+from .sedt import MLP, SEDT, SPSEDT
 from .transformer import Transformer, block_diagonal_bias
 
 __all__ = [
     "SEDT",
+    "SPSEDT",
     "MLP",
     "ResNetBackbone",
     "Transformer",
@@ -49,14 +51,17 @@ def build_model(cfg: SEDTConfig, device: Optional[torch.device | str] = None,
                 generator: Optional[torch.Generator] = None) -> Tuple[SEDT, Dict[str, float]]:
     """(SEDT module in eval mode on ``device``, loss-weight dict).
 
-    Parameters are f32 and drawn on the CPU (from ``generator`` when given,
-    so a seed fixes them), then moved to ``device``.
+    A ``self_sup`` config gives :class:`SPSEDT` with one class and no
+    audio-tag query, as in the JAX package.  Parameters are f32 and drawn on
+    the CPU (from ``generator`` when given, so a seed fixes them), then moved
+    to ``device``.
     """
-    if cfg.model.self_sup:
-        raise NotImplementedError("SP-SEDT is not ported yet")
     dev = resolve_device(device)
+    mcfg = cfg.model
+    if mcfg.self_sup:
+        mcfg = dataclasses.replace(mcfg, num_classes=1, dec_at=False)
     with torch.random.fork_rng(devices=[]):
         if generator is not None:
             torch.random.default_generator.set_state(generator.get_state())
-        model = SEDT(cfg.model)
-    return model.to(dev).eval(), build_weight_dict(cfg.model, cfg.loss)
+        model = SPSEDT(mcfg) if mcfg.self_sup else SEDT(mcfg)
+    return model.to(dev).eval(), build_weight_dict(mcfg, cfg.loss)

@@ -4,10 +4,10 @@ Counterpart of the JAX package's ``models/criterion.py``: the Hungarian
 matching of the final and aux decoder layers (one joint solve for plain
 matching; under ``fine_tune`` or ``normalize`` one solve for the final layer
 and one for all aux layers), the classification, box, cardinality and
-audio-tag losses, and the loss-weight dict.  Gradients flow from the losses
-into the logits, boxes and audio tags, never through the matching.
-``num_boxes`` is clamped to >= 1 as in the JAX package.  The patch-feature
-loss waits for SP-SEDT.
+audio-tag losses, SP-SEDT's patch-feature reconstruction loss, and the
+loss-weight dict.  Gradients flow from the losses into the logits, boxes,
+audio tags and features (the reconstruction target's too), never through
+the matching.  ``num_boxes`` is clamped to >= 1 as in the JAX package.
 """
 from __future__ import annotations
 
@@ -162,6 +162,23 @@ def loss_weak_p(at_p: torch.Tensor, targets: DenseTargets, weak: torch.Tensor) -
     return (bce * weak[:, None]).sum() / (weak.sum() * c).clamp(min=1.0)
 
 
+def loss_feature(
+    pred_feature: torch.Tensor,  # [B, Q, Cb]
+    gt_feature: torch.Tensor,  # [B, P, Cb]
+    mres: MatchResult,
+    strong: torch.Tensor,
+    num_boxes: torch.Tensor,
+) -> torch.Tensor:
+    """Normalised-MSE patch-feature reconstruction over the matched queries:
+    each vector divided by max(its norm, 1e-12), in its own dtype.  The target
+    keeps its gradient (no detach), as in the JAX package."""
+    tgt = _gather_tgt(gt_feature, mres.tgt_for_query)  # [B, Q, Cb]
+    norm = lambda v: v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp(min=1e-12)
+    mse = ((norm(pred_feature) - norm(tgt)) ** 2).sum(-1)  # [B, Q]
+    w = mres.query_matched * strong[:, None]
+    return (mse * w).sum() / num_boxes
+
+
 def build_weight_dict(mcfg: ModelConfig, lcfg: LossConfig) -> Dict[str, float]:
     """Loss-name -> weight map."""
     wd = {
@@ -289,6 +306,9 @@ def set_criterion(
         lb, lg = loss_boxes(outputs["pred_boxes"], targets, mres, strong, num_boxes)
         losses.update(loss_ce=lc, class_error=cerr, loss_bbox=lb, loss_giou=lg)
         losses["cardinality_error"] = loss_cardinality(outputs["pred_logits"], targets)
+        if "pred_feature" in outputs:
+            losses["loss_feature"] = loss_feature(outputs["pred_feature"],
+                                                  outputs["gt_feature"], mres, strong, num_boxes)
 
     if "at" in outputs:
         losses["loss_weak"] = loss_weak(
@@ -310,6 +330,9 @@ def set_criterion(
             losses[f"loss_bbox_{i}"] = lb
             losses[f"loss_giou_{i}"] = lg
             losses[f"cardinality_error_{i}"] = loss_cardinality(logits_a, targets)
+            if "aux_feature" in outputs:
+                losses[f"loss_feature_{i}"] = loss_feature(
+                    outputs["aux_feature"][i], outputs["gt_feature"], m, strong, num_boxes)
     return losses, mres
 
 

@@ -16,11 +16,18 @@ Counterpart of the JAX package's ``train_lib.py``:
   checkpoints per fusion strategy, early stopping, the fine-tune stage from
   ``--epochs_ls``, resume, the final test; an ImageNet backbone from a
   torchvision ``.pth``; with ``--from_wavs`` the frontend inside the train
-  step), returning a :class:`TrainResult`.
+  step; with ``--pretrain`` an SP-SEDT checkpoint carried over by
+  ``utils.checkpoint.load_pretrain_into``), returning a :class:`TrainResult`;
+* ``run_spsedt``: SP-SEDT self-supervised pretraining (patch queries on
+  unlabeled clips, ``--synthetic_smoke`` or DCASE's
+  ``unlabel_in_domain.tsv`` and with ``--extra_data`` its 2018 task 5 TSV;
+  periodic and final checkpoints, resume), returning a
+  :class:`PretrainResult`.
 
-``--pretrain`` and several processes raise ``NotImplementedError``, naming
-the ROADMAP item that brings them.  The SP-SEDT, semi-supervised and
-audio-tag trainers wait for their slices.
+Several processes, and the audio-tag backbone init of ``run_spsedt
+--pretrain``, raise ``NotImplementedError``, naming the ROADMAP item that
+brings them.  The semi-supervised and audio-tag trainers wait for their
+slices.
 """
 from __future__ import annotations
 
@@ -51,7 +58,14 @@ from .models import build_model, resolve_device
 from .models.torch_import import load_imagenet_backbone
 from .ops.frontend import make_frontend_fn
 from .parallel.distribute import get_reduced_loss, get_world_size
-from .utils.checkpoint import EarlyStopping, SaveBest, back_up_code, load_checkpoint, save_checkpoint
+from .utils.checkpoint import (
+    EarlyStopping,
+    SaveBest,
+    back_up_code,
+    load_checkpoint,
+    load_pretrain_into,
+    save_checkpoint,
+)
 from .utils.logger import create_logger, set_logger
 from .utils.meters import DeviceMetricAccumulator, Heartbeat, MetricLogger
 from .utils.profiler import StepTimer
@@ -585,9 +599,7 @@ def _imagenet_backbone_init(model, args, log) -> Optional[str]:
 
 
 def _check_ported(args) -> None:
-    """Raise for the paths of the trainer that this port does not have yet."""
-    if args.pretrain:
-        raise NotImplementedError("--pretrain waits for SP-SEDT (ROADMAP queue 1, item 4)")
+    """Raise for the paths of the trainers that this port does not have yet."""
     if get_world_size() > 1:
         raise NotImplementedError("training over several processes waits for multi-GPU "
                                   "(ROADMAP queue 1, item 7)")
@@ -605,10 +617,11 @@ def _set_rng_state(rng: np.random.RandomState, st: Dict) -> None:
 
 
 def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generator, log):
-    """One pass of ``sampler`` over ``dataset`` through ``train_step``; returns
-    the metrics summed on the device (a :class:`DeviceMetricAccumulator`,
-    not yet fetched) and the step timer.  Batches are pinned for the card,
-    and with ``bank`` their features are gathered there."""
+    """One pass of ``sampler`` (index lists) over ``dataset`` through
+    ``train_step``; returns the metrics summed on the device (a
+    :class:`DeviceMetricAccumulator`, not yet fetched) and the step timer.
+    Batches are pinned for the card, and with ``bank`` their features are
+    gathered there."""
     acc = DeviceMetricAccumulator()
     timer = StepTimer()  # its data_time: the wait for each batch
     hb = Heartbeat(log.info, len(sampler))
@@ -678,6 +691,11 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
     _imagenet_backbone_init(model, args, log)
     state = init_train_state(model, cfg, steps_per_epoch)
     log.info(f"number of parameters in the model: {sum(p.numel() for p in model.parameters())}")
+    if args.pretrain:  # after the ImageNet init, before --resume
+        loaded = load_pretrain_into(
+            model, load_checkpoint(osp.join(model_dir, args.pretrain))["model"])
+        log.info(f"loaded self-supervised pretrain weights from {args.pretrain}: "
+                 f"{len(loaded)} parameters")
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     best_saver = {m: SaveBest("sup") for m in cfg.train.fusion_strategy}
     early = EarlyStopping(patience=cfg.train.early_stopping_patience,
@@ -824,3 +842,165 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
     return TrainResult(metrics, epochs, final,
                        bank=train_bank is not None and valid_bank is not None,
                        model_dir=model_dir, data_timings=data.get("timings", {}))
+
+
+# ---------------------------------------------------------------------------
+# SP-SEDT self-supervised pretraining
+# ---------------------------------------------------------------------------
+
+
+class PretrainResult(NamedTuple):
+    """What :func:`run_spsedt` measured."""
+
+    # per epoch: the loss means, steps, seconds, the wait for batches and
+    # the checkpoint seconds
+    epochs: List[Dict]
+    bank: bool  # whether the feature bank held the features
+    model_dir: str
+    checkpoint: str  # the final checkpoint
+    # on disk: seconds of the feature pass and the scaler, clips extracted
+    data_timings: Dict
+
+
+def spsedt_config(args) -> SEDTConfig:
+    """The pretrainer's config: ``args`` with ``self_sup`` on, ``dec_at`` off
+    and ``lr_backbone`` 0 (set on ``args`` too, as the JAX package does)."""
+    args.self_sup = True
+    args.dec_at = False
+    args.lr_backbone = 0.0  # the backbone is frozen during pretraining
+    return args_to_config(args)
+
+
+def build_pretrain_data(cfg: SEDTConfig, args, rng: np.random.RandomState) -> Dict:
+    """SP-SEDT's training set: ``--synthetic_smoke`` clips (unlabeled), or
+    DCASE's ``unlabel_in_domain.tsv`` (with ``--extra_data`` also
+    ``dcase2018_task5.tsv``, its rows after the first's) through ``SedData``,
+    the scaler of that set (``<exp_root>/<dataset>.json``, computed and saved
+    unless it exists) and ``DataLoadDf``.  Every item draws its patch boxes
+    from ``rng``; the crops are gathered on the device."""
+    enc = BoxEncoder(1, seconds=cfg.features.max_len_seconds, generate_patch=True)
+    patch_kw = dict(num_patches=cfg.model.num_patches, fixed_patch_size=args.fixed_patch_size,
+                    rng=rng)
+    if args.synthetic_smoke:
+        train = SyntheticDataset(args.smoke_clips, list(cfg.data.classes), cfg.model.max_frames,
+                                 cfg.model.n_mels, enc.encode_strong_df, max_events=2, seed=0,
+                                 unlabel=True, **patch_kw)
+        return {"train": train, "timings": {}}
+    root = osp.join(cfg.data.root, cfg.data.dataset_name)
+    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
+                 compute_log=False)
+    tsvs = ["unlabel_in_domain.tsv"] + (["dcase2018_task5.tsv"] if getattr(args, "extra_data", False)
+                                      else [])
+    t0 = time.perf_counter()
+    rows = [r for tsv in tsvs for r in ds.initialize_and_get_df(
+        osp.join(root, "metadata", "train", tsv), nb_files=cfg.data.nb_files)]
+    timings = {"features_s": time.perf_counter() - t0, "extracted": ds.n_extracted,
+               "clips": len(unique(r["filename"] for r in rows))}
+    scaler = Scaler()
+    scaler_path = osp.join(cfg.data.exp_root, cfg.data.dataset_name + ".json")
+    t0 = time.perf_counter()
+    if osp.isfile(scaler_path):
+        scaler.load(scaler_path)
+    else:
+        pre = DataLoadDf(rows, transform=get_transforms(cfg.model.max_frames, None,
+                                                        compute_log=True))
+        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
+        os.makedirs(osp.dirname(scaler_path), exist_ok=True)
+        scaler.save(scaler_path)
+    timings["scaler_s"] = time.perf_counter() - t0
+    train = DataLoadDf(rows, enc.encode_strong_df,
+                       get_transforms(cfg.model.max_frames, scaler, compute_log=True),
+                       in_memory=cfg.data.in_memory, device_patches=True, **patch_kw)
+    return {"train": train, "timings": timings}
+
+
+def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainResult:
+    """SP-SEDT self-supervised pretraining, on ``--synthetic_smoke`` clips or
+    DCASE's unlabeled clips under ``--data_root``: no validation, a
+    checkpoint every ``checkpoint_epochs`` epochs and a final one named
+    ``info`` (``{"model", "epoch"}``, what ``run_supervised --pretrain``
+    reads).
+
+    Runs on ``device`` (the GPU when None).  As in the JAX package it forces
+    ``self_sup``, no ``dec_at`` and ``lr_backbone`` 0 (the backbone's
+    trainable leaves keep their gradients, which count in the clip, and
+    their AdamW update is exactly zero).  One ``np.random.RandomState(seed)``
+    draws each epoch's permutation, then each item's patch boxes in batch
+    order (on the prefetch thread, which ends with the epoch), as the JAX
+    package draws them from numpy's global stream after seeding it.
+    ``--resume`` restores the model, AdamW, that stream and the step's
+    generator from a periodic checkpoint and goes on at the next epoch.
+    """
+    dev = resolve_device(device)
+    _check_ported(args)
+    if args.pretrain:
+        raise NotImplementedError(
+            "SP-SEDT's --pretrain (the backbone from an audio-tag checkpoint) waits for the "
+            "audio-tag trainer (ROADMAP queue 1, item 6)")
+    cfg = spsedt_config(args)
+    if args.log:
+        set_logger(cfg.train.info)
+    log = create_logger("train_spsedt_torch")
+    log.info("SP-SEDT self-supervised pretraining (PyTorch)")
+    rng = np.random.RandomState(cfg.train.seed)
+    epochs: List[Dict] = []
+
+    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
+    os.makedirs(model_dir, exist_ok=True)
+    data = build_pretrain_data(cfg, args, rng)
+    train_data = data["train"]
+    bs = cfg.data.batch_size
+    steps_per_epoch = max(len(train_data) // bs, 1)
+
+    model, weight_dict = init_model(cfg, dev)
+    log.info(f"params: {sum(p.numel() for p in model.parameters())}")
+    _imagenet_backbone_init(model, args, log)
+    state = init_train_state(model, cfg, steps_per_epoch)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    start_epoch = 0
+    if args.resume:
+        ck = load_checkpoint(osp.join(model_dir, args.resume))
+        model.load_state_dict(ck["model"])
+        start_epoch = int(ck.get("epoch", -1)) + 1
+        if "optimizer" in ck:
+            state.optimizer.load_state_dict(ck["optimizer"])
+            _set_rng_state(rng, ck["rng"])
+            gen.set_state(ck["generator"])
+        log.info(f"resumed from {args.resume}: epoch {start_epoch} next")
+
+    train_step = make_train_step(model, weight_dict, cfg, state.optimizer, augment_on=False,
+                                 device=dev)
+    bank = maybe_bank(args, train_data, cfg, dev, log=log)
+
+    def save(name: str, content: Dict, record: Dict) -> None:
+        t = time.perf_counter()
+        save_checkpoint(osp.join(model_dir, name), content)
+        record["checkpoint_s"] = record.get("checkpoint_s", 0.0) + time.perf_counter() - t
+
+    for epoch in range(start_epoch, args.epochs):
+        record: Dict = {"epoch": epoch}
+        epochs.append(record)
+        t0 = time.time()
+        order = rng.permutation(len(train_data))
+        index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
+        acc, timer = train_one_epoch(train_step, train_data, index_batches, cfg, bank, gen, log)
+        means, n_steps = acc.means()  # the one fetch of the epoch
+        train_s = time.time() - t0
+        loss_mean = float(means.get("loss", float("nan")))
+        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
+                 f"{timer.summary()}")
+        record.update(loss=loss_mean, loss_means=means, steps=n_steps, train_s=train_s,
+                      data_wait_s=timer.data_time.sum)
+        if not math.isfinite(loss_mean):
+            log.info("Loss is not finite, stopping")
+            raise SystemExit(1)
+        if cfg.train.checkpoint_epochs and (epoch + 1) % cfg.train.checkpoint_epochs == 0:
+            save(f"{cfg.train.info}_{epoch}", {
+                "model": model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "epoch": epoch, "rng": _rng_state(rng), "generator": gen.get_state()}, record)
+    final = {}
+    save(cfg.train.info, {"model": model.state_dict(), "epoch": args.epochs}, final)
+    log.info(f"saved final pretrain checkpoint: {cfg.train.info} ({final['checkpoint_s']:.3f}s)")
+    return PretrainResult(epochs, bank=bank is not None, model_dir=model_dir,
+                          checkpoint=osp.join(model_dir, cfg.train.info),
+                          data_timings=dict(data["timings"], final_checkpoint_s=final["checkpoint_s"]))

@@ -4,14 +4,15 @@ Counterpart of the JAX package's ``utils/checkpoint.py``: one file per state,
 written under a temporary name and renamed, so a crash never leaves a
 half-written best model.  The format is the port's own (``torch.save`` of
 ``{"model": state_dict, ...}``); a checkpoint of the JAX package crosses
-through ``weights.from_flax``.  The pretrain and audio-tag weight surgery
-waits for the SP-SEDT slice (ROADMAP queue 1, item 4).
+through ``weights.from_flax``.  The SP-SEDT pretrain -> fine-tune weight
+surgery is :func:`load_pretrain_into`; the audio-tag backbone surgery waits
+for the audio-tag trainer (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,37 @@ def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Load a state saved by :func:`save_checkpoint`, tensors on the CPU."""
     return torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
+
+
+@torch.no_grad()
+def load_pretrain_into(model: torch.nn.Module,
+                       pretrain_state: Mapping[str, torch.Tensor]) -> List[str]:
+    """SP-SEDT pretrain -> SEDT fine-tune surgery, in place; returns the
+    names of the parameters loaded.
+
+    The JAX package's name rules, on the model's parameters only (never its
+    buffers: the fine-tune keeps its own FrozenBN statistics):
+
+    * a name containing ``class_embed`` (``weak_class_embed`` too) is kept;
+    * ``query_embed`` takes the pretrained rows at slots 1: when the
+      checkpoint has one row fewer (the fine-tune's audio-tag query is slot
+      0), or the whole table when the shapes match;
+    * any other parameter is copied when the checkpoint has its name at the
+      same shape (a deeper pretrain's extra encoder layers find no home).
+    """
+    loaded = []
+    for name, p in model.named_parameters():
+        old = pretrain_state.get(name)
+        if old is None or "class_embed" in name:
+            continue
+        if "query_embed" in name and old.shape[0] == p.shape[0] - 1:
+            p[1:].copy_(old)
+        elif tuple(old.shape) == tuple(p.shape):
+            p.copy_(old)
+        else:
+            continue
+        loaded.append(name)
+    return loaded
 
 
 class SaveBest:

@@ -19,8 +19,13 @@ matmuls in a different order.  Dropout on the card from an explicit CUDA
 generator: the same seed gives the same mask, and the keep share lies
 within 5 standard deviations of its binomial share.  The train step
 launches K1 once (plain matching) or twice (fine-tune matching: the final
-layer, then the aux layers).
+layer, then the aux layers).  SP-SEDT: the patch crop on the card against
+the CPU to 1e-5; two tiny SP-SEDT steps on the card against the CPU to
+1e-3; one step launches K1 once and leaves the lr-0 backbone leaves bit for
+bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -331,3 +336,36 @@ def test_bank_gather_on_card_equals_host_batch(cuda):
         want = h.feats.clone()
         want[h.indexes < 0] = torch.from_numpy(ds[0][0])[..., None]
         assert torch.equal(feats.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_patch_crop_on_card_equals_cpu(cuda):
+    """SP-SEDT's crop on the card against the CPU to 1e-5 (``chip_smoke``'s
+    check, which raises on any miss), at 496 x 64 and at 100 x 48."""
+    assert chip_smoke.patch_crop_against_cpu(cuda, seed=1) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_spsedt_step_on_card_matches_cpu(cuda):
+    chip_smoke.small_spsedt_step(cuda, seed=1)
+
+
+@pytest.mark.gpu
+def test_spsedt_step_launches_k1_once_and_keeps_lr0_leaves(cuda):
+    """One tiny SP-SEDT step on the card: K1 once (the final and aux layers'
+    joint solve), the backbone's lr-0 leaves, the frozen ones and the
+    FrozenBN buffers bit for bit, the rest moved."""
+    cfg = chip_smoke.tiny_spsedt_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dec_layers=2, mask_ratio=0.1,
+                                                dropout=0.1))
+    batch = chip_smoke.spsedt_batch(cfg, 4, seed=2)
+    model, wd = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(2))
+    state = init_train_state(model, cfg, steps_per_epoch=10)
+    step = make_train_step(model, wd, cfg, state.optimizer, augment_on=False, device=cuda)
+    before = chip_smoke.leaves_by_rule(model)
+    launches = hungarian.lsap_lane.launches
+    metrics = step(batch, torch.Generator(device=cuda).manual_seed(2))
+    torch.cuda.synchronize()
+    assert hungarian.lsap_lane.launches - launches == 1
+    assert torch.isfinite(metrics["loss"]).item() and "loss_feature_0" in metrics
+    chip_smoke.check_spsedt_leaves(model, before)

@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from sound_event_detection_transformer_tpu_torch.cli import main_sedt, sedt_args
+from sound_event_detection_transformer_tpu_torch.cli import main_sedt, main_spsedt, sedt_args, spsedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.engine import (
     init_train_state,
@@ -28,7 +28,7 @@ from sound_event_detection_transformer_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     scaled_dot_attention,
 )
-from sound_event_detection_transformer_tpu_torch.train_lib import run_supervised
+from sound_event_detection_transformer_tpu_torch.train_lib import run_spsedt, run_supervised
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -36,6 +36,7 @@ PORT = ROOT / "sound_event_detection_transformer_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "sound_event_detection_transformer_tpu"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py",
                                         ROOT / "bench_torch.py", ROOT / "train_sedt_torch.py",
+                                        ROOT / "train_spsedt_torch.py",
                                         ROOT / "tools" / "time_jv_kernels.py"]
 
 
@@ -66,7 +67,7 @@ def test_the_disk_path_modules_are_scanned():
     names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
     assert {"data/tsv.py", "data/transforms.py", "data/collapse_event.py", "data/features.py",
             "data/wav_dataset.py", "data/dataset.py", "models/torch_import.py",
-            "train_lib.py"} <= names
+            "train_lib.py", "ops/patches.py", "models/sedt.py", "cli.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -86,10 +87,10 @@ def test_port_runs_without_loading_jax():
         "from sound_event_detection_transformer_tpu_torch.data import dataset, feature_bank\n"
         "from sound_event_detection_transformer_tpu_torch.data import collapse_event, features, transforms, tsv, wav_dataset\n"
         "from sound_event_detection_transformer_tpu_torch.models import torch_import\n"
-        "from sound_event_detection_transformer_tpu_torch.ops import augment, dropout\n"
+        "from sound_event_detection_transformer_tpu_torch.ops import augment, dropout, patches\n"
         "from sound_event_detection_transformer_tpu_torch.parallel import optim\n"
         "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
-        "import bench_torch, predict_torch, train_sedt_torch\n"
+        "import bench_torch, predict_torch, train_sedt_torch, train_spsedt_torch\n"
         "cfg = SEDTConfig.tiny_test()\n"
         "model, wd = build_model(cfg, device='cpu')\n"
         "m = cfg.model\n"
@@ -123,6 +124,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         run_supervised(sedt_args(argv))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_sedt(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_spsedt(spsedt_args(argv))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_spsedt(argv)
 
 
 def test_bare_cuda_means_the_current_card(monkeypatch):

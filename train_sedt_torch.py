@@ -4,7 +4,8 @@
 The same flags as ``train_sedt.py``: it trains on a dataset under
 ``--data_root`` (URBAN-SED or DCASE layout; ``.npy`` log-mels, or raw
 waveforms with ``--from_wavs``) or on generated data (``--synthetic_smoke``);
-``--pretrain`` waits for SP-SEDT.  See
+``--pretrain <name>`` starts from the SP-SEDT checkpoint ``<name>`` that
+``train_spsedt_torch.py`` saved under the same ``--exp_root``.  See
 ``sound_event_detection_transformer_tpu_torch/train_lib.py`` for the loop.
 It runs on the current CUDA device and raises without one.  Installed as
 the ``sedt-train-torch`` console script.
