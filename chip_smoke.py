@@ -34,10 +34,15 @@ nvcc for sm_90a, all started together), then:
    small seeded datasets on disk (URBAN-SED ``.npy``, URBAN-SED
    ``--from_wavs``, DCASE ``.npy`` with a weak stream; 500 and 496 frames),
    card against CPU, each epoch's loss means to 1e-3; SP-SEDT's patch crop
-   (``extract_patches_device``) on the card against the CPU to 1e-5, and two
+   (``extract_patches_device``) on the card against the CPU to 1e-5, two
    tiny SP-SEDT train steps (resnet18, d 64, 1+1 layers, feature
    reconstruction, every patch query kept, dropout 0) card against CPU to
-   1e-3;
+   1e-3; two tiny semi steps (2 strong, 2 weak, 4 unlabeled clips, a fixed
+   student view, thresholds under every score) and the tiny semi trainer
+   ``run_semi`` (2 epochs from a teacher checkpoint that favours one class,
+   lr 1e-5) card against CPU: the pseudo counts exactly and above 0, the
+   losses, the student and the teacher, the loss means, the adapted
+   thresholds and F1 to 1e-3;
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
@@ -104,8 +109,28 @@ nvcc for sm_90a, all started together), then:
    1-3 (K1 4 + 14 launches), checking the surgery leaf for leaf (every
    loaded parameter the checkpoint's, the class heads and query row 0 their
    own, encoder layers 3-5 of the pretrain without a home, the FrozenBN
-   buffers untouched); it prints the writing, the extraction and the scaler,
-   per epoch ms/step and the data wait, and the checkpoint I/O;
+   buffers untouched), then the semi stage, ``run_semi`` at the README's
+   semi command from the fine-tune's best checkpoint (batch 64 = 16 strong +
+   16 weak + 32 unlabeled, 4 steps an epoch, 2 epochs, a checkpoint every
+   epoch; K1 8 + 4 launches, K2-K4 none; the final test on the best
+   teacher; every checkpoint loads back); it prints the writing, the
+   extraction and the scaler, per epoch ms/step and the data wait, the
+   pseudo counts and thresholds, and the checkpoint I/O;
+4g. drives the semi step at the README's semi command (``SEMI_RECIPE``:
+   ResNet-50 DC5, 3+3 layers, d 256, 20 queries, ``dec_at``, focal loss,
+   mixup 0.6, frequency mask and shift; dropout 0.1, bf16 autocast;
+   496 x 64, batch 64 = 16 strong + 16 weak + 32 unlabeled; class-wise
+   thresholds at 0.05, so that the random teacher labels every unlabeled
+   clip) through ``train_lib.semi_views`` and ``make_semi_train_step``: K1
+   must launch once a step at [192, 20, 20] (the labeled and pseudo-labeled
+   problems of the three decoder layers) and K2-K4 never; the teacher after
+   a step with the EMA within 1e-6 of d * e + (1 - d) * p, unchanged
+   without it; the student's frozen leaves and the FrozenBN buffers bit for
+   bit; some mixed head rows' pseudo targets carrying labeled events; it
+   prints ms/step and clips/s, the pseudo counts, the peak memory, the
+   FLOP share of the bf16 peak, the idle share under the profiler
+   (``chiprun_out/semi_step_profile.txt``), the device time of the step's
+   parts and K1's time on the step's own cost;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -127,7 +152,7 @@ nvcc for sm_90a, all started together), then:
    times K1 also at every shape of ``K1_SHAPES`` on seeded costs, and for K4
    times the library call ``F.scaled_dot_product_attention``;
 8. profiles the 10 s evaluation step, the train step, a trainer epoch, the
-   SP-SEDT step and the long predict into ``chiprun_out/``.
+   SP-SEDT step, the semi step and the long predict into ``chiprun_out/``.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -154,7 +179,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from bench_torch import flagship_config, synthetic_batch
 from sound_event_detection_transformer_tpu_torch import train_lib
-from sound_event_detection_transformer_tpu_torch.cli import sedt_args, spsedt_args
+from sound_event_detection_transformer_tpu_torch.cli import sedt_args, semi_args, spsedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data import wav_dataset
 from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate
@@ -165,9 +190,12 @@ from sound_event_detection_transformer_tpu_torch.data.synthetic import Synthetic
 from sound_event_detection_transformer_tpu_torch.data.transforms import get_random_patch_boxes
 from sound_event_detection_transformer_tpu_torch.engine import (
     Batch,
+    get_pseudo_labels,
     init_train_state,
     make_eval_step,
     make_loss_fn,
+    make_semi_train_step,
+    make_teacher,
     make_train_step,
 )
 from sound_event_detection_transformer_tpu_torch.models import (
@@ -176,6 +204,7 @@ from sound_event_detection_transformer_tpu_torch.models import (
     set_criterion,
     total_loss,
 )
+from sound_event_detection_transformer_tpu_torch.models.criterion import DenseTargets, joint_match
 from sound_event_detection_transformer_tpu_torch.models.torch_import import (
     torchvision_resnet_shapes,
     torchvision_to_backbone,
@@ -183,15 +212,19 @@ from sound_event_detection_transformer_tpu_torch.models.torch_import import (
 from sound_event_detection_transformer_tpu_torch.ops import (
     _build,
     attention,
+    augment,
     flash_attention,
     hungarian,
     matcher,
 )
 from sound_event_detection_transformer_tpu_torch.ops.frontend import make_frontend_fn
 from sound_event_detection_transformer_tpu_torch.ops.patches import extract_patches_device
-from sound_event_detection_transformer_tpu_torch.parallel.optim import param_label
+from sound_event_detection_transformer_tpu_torch.parallel.optim import ema_update, param_label
 from sound_event_detection_transformer_tpu_torch.predict_cli import make_infer
-from sound_event_detection_transformer_tpu_torch.utils.checkpoint import load_checkpoint
+from sound_event_detection_transformer_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 
 # One H100 SXM at its 700 W limit (NVIDIA data sheet): device memory rate, the
 # f32 rate outside the tensor cores (the type the Hungarian kernels compute
@@ -290,6 +323,28 @@ SPSEDT_CHAIN = SPSEDT_RECIPE + ["--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT
 FINE_TUNE_CHAIN = ["--dataname", "dcase", "--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP,
                    "--dec_at", "--batch_size", "32", "--epochs", "1", "--fusion_strategy", "1",
                    "2", "3", "--log"]
+# the semi trainer: the README's semi command (``train_ss_sedt.py --dataname
+# dcase --dec_at --focal_loss --mix_up_ratio 0.6 --freq_mask --freq_shift``:
+# ResNet-50 DC5, 3+3 layers, 20 queries, 496 x 64) at its semi batch of 64
+# (16 strong, 16 weak, 32 unlabeled); the bare step's class-wise thresholds
+# sit low enough that random weights (class scores near 1/11) give pseudo
+# events.  Then the chain's semi stage on phase 4f's DCASE layout from the
+# fine-tune's best checkpoint, and the tiny semi trainer card against CPU
+# (lr 1e-5: at 1e-4 the tiny run amplifies a 1e-6 difference of its weights
+# to 1.7e-3 of a loss mean within two epochs)
+SEMI_RECIPE = ["--dataname", "dcase", "--dec_at", "--focal_loss", "--mix_up_ratio", "0.6",
+               "--freq_mask", "--freq_shift", "--log"]
+SEMI_WARMUP = 3  # recipe steps before the timed ones
+SEMI_STEPS = 10  # timed recipe steps
+SEMI_THRESHOLD = 0.05
+SEMI_CHAIN = SEMI_RECIPE + ["--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP, "--epochs", "2",
+                            "--checkpoint_epochs", "1"]
+TINY_SEMI = ["--dataname", "dcase", "--synthetic_smoke", "--smoke_clips", "16",
+             "--semi_batch_size", "8", "--backbone", "resnet18", "--hidden_dim", "64",
+             "--enc_layers", "1", "--dec_layers", "2", "--dim_feedforward", "128",
+             "--num_queries", "6", "--epochs", "2", "--dropout", "0", "--compute_dtype",
+             "float32", "--dec_at", "--lr", "1e-5", "--lr_backbone", "1e-5", "--log", "--info",
+             "tiny_semi", "--teacher_model", "teacher"]
 SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
 PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
 
@@ -1870,7 +1925,411 @@ def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
           f"{e['train_s'] / e['steps'] * 1e3:.3f} ms/step, data wait "
           f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step; K1 {k1_train} launches in train "
           f"steps, {k1_eval} in eval steps, K2-K4 none; F1 {ft.f1} ({card})")
-    return {"pretrain": k1, "fine_tune": k1_train + k1_eval}
+    semi = run_semi_chain(dev, card, f"{ft_args.info}_{ft_args.fusion_strategy[0]}_best")
+    return {"pretrain": k1, "fine_tune": k1_train + k1_eval, "semi": semi}
+
+
+# ------------------------------------------------------------- semi trainer
+
+
+def semi_batch(cfg: SEDTConfig, sizes, seed: int) -> Batch:
+    """``sizes`` = (strong, weak, unlabeled) seeded synthetic clips at the
+    config's geometry, labeled rows first, on the CPU."""
+    m = cfg.model
+    sec = cfg.features.max_len_seconds
+    enc = BoxEncoder(list(cfg.data.classes), sec)
+    kinds = ({}, {"weak_only": True}, {"unlabel": True})
+    items = []
+    for k, (n, kw) in enumerate(zip(sizes, kinds)):
+        ds = SyntheticDataset(n, cfg.data.classes, m.max_frames, m.n_mels, enc.encode_strong_df,
+                              max_events=3, seconds=sec, seed=seed + k, **kw)
+        items += [ds[i] for i in range(n)]
+    return collate(items, m.max_events, sec)
+
+
+def semi_flags(sizes, dev: torch.device) -> tuple:
+    """The semi batch's (strong, weak, unlabel) flags by position."""
+    pos = torch.arange(sum(sizes), device=dev)
+    return pos < sizes[0], (pos >= sizes[0]) & (pos < sizes[0] + sizes[1]), pos >= sizes[0] + sizes[1]
+
+
+def fixed_views(feats, cfg, generator):
+    """The clean view and, in place of a noisy one drawn from the device's
+    own stream, the clean one times 1.0625: card and CPU then see the same
+    student input."""
+    return feats, feats * 1.0625
+
+
+def small_semi_step(dev: torch.device, seed: int, steps: int = 2) -> float:
+    """Two tiny f32 semi steps (2 strong, 2 weak, 4 unlabeled clips; dropout
+    0, no mixup; the fixed student view; a teacher 1 % apart from the
+    student, so that the pseudo boxes are not the student's predictions;
+    thresholds at 0.05, under every score of the random teacher) on the card
+    against the CPU, TF32 off: the pseudo counts exactly and above 0 in
+    every step, the losses, every parameter of the student and of the
+    teacher to 1e-3.  Returns the largest difference."""
+    cfg = tiny_train_config()
+    sizes = (2, 2, 4)
+    cpu = semi_batch(cfg, sizes, seed)
+    runs = []  # the CPU's, then the card's
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            model, wd = build_model(cfg, device=d, generator=torch.Generator().manual_seed(seed))
+            state = init_train_state(model, cfg, steps_per_epoch=10, schedule="cosine")
+            teacher = make_teacher(model)
+            g = torch.Generator().manual_seed(seed + 1)
+            with torch.no_grad():
+                for p in teacher.parameters():
+                    p.add_((0.01 * p.abs().mean().cpu() * torch.randn(p.shape, generator=g)).to(d))
+            step = make_semi_train_step(wd, cfg, n_labeled=sizes[0] + sizes[1], device=d)
+            gen = torch.Generator(device=d).manual_seed(seed)
+            thr = torch.full((cfg.model.num_classes,), 0.05, device=d)
+            runs.append([])
+            for _ in range(steps):
+                tf, sf = fixed_views(cpu.feats.to(d), cfg, gen)
+                metrics, counts = step(state, teacher, tf, sf, cpu.pad_mask, cpu.targets,
+                                       *semi_flags(sizes, d), thr, gen, True)
+                runs[-1].append((
+                    {k: v.cpu() for k, v in metrics.items()}, counts.cpu(),
+                    {f"student {k}": v.cpu().clone() for k, v in model.state_dict().items()}
+                    | {f"teacher {k}": v.cpu().clone() for k, v in teacher.state_dict().items()}))
+    worst = 0.0
+    for (ref_m, ref_c, ref_p), (got_m, got_c, got_p) in zip(*runs, strict=True):
+        assert torch.equal(got_c, ref_c) and ref_c.sum() > 0, (got_c, ref_c)
+        for k, r in ref_m.items():
+            assert torch.isfinite(got_m[k]).item() and torch.allclose(got_m[k], r, rtol=1e-3,
+                                                                      atol=1e-3), (k, got_m[k], r)
+            worst = max(worst, float((got_m[k] - r).abs()))
+        for k, r in ref_p.items():
+            assert torch.allclose(got_p[k], r, rtol=1e-3, atol=1e-3), k
+            worst = max(worst, float((got_p[k] - r).abs().max()))
+    print(f"tiny semi step, card vs CPU: pseudo counts {[c.tolist() for _, c, _ in runs[1]]}")
+    return worst
+
+
+def write_semi_teacher(cfg: SEDTConfig, path: Path, seed: int, raised: int = 2) -> None:
+    """Seeded weights with class ``raised`` favoured (its logit bias up by 6,
+    its audio-tag bias by 4), so that the teacher labels the unlabeled
+    clips, as the checkpoint ``{"model": ...}`` that ``--teacher_model``
+    reads."""
+    model, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.class_embed.bias[raised] += 6.0
+        model.weak_class_embed.bias[raised] += 4.0
+    save_checkpoint(str(path), {"model": model.state_dict()})
+
+
+def small_semi_trainer(dev: torch.device) -> float:
+    """``run_semi`` at the tiny size (``TINY_SEMI``: resnet18, d 64, 1+2
+    layers, semi batch 8, 16 clips a stream, 2 epochs, dropout 0, no
+    mixup or masks, lr 1e-5, the fixed student view, a teacher checkpoint
+    favouring one class) on the card and on the CPU, TF32 off: each epoch's
+    loss means, pseudo counts, adapted thresholds and validation F1 to 1e-3,
+    the counts above 0.  Returns the largest difference."""
+    runs = []  # the CPU's, then the card's
+    real_views = train_lib.semi_views
+    train_lib.semi_views = fixed_views
+    try:
+        with cudnn_tf32_off():
+            for i, d in enumerate((torch.device("cpu"), dev)):
+                root = Path(TRAIN_ROOT + "_tiny_semi") / f"{i}_{d.type}"
+                shutil.rmtree(root, ignore_errors=True)
+                args = semi_args(TINY_SEMI + ["--exp_root", str(root)])
+                write_semi_teacher(train_lib.args_to_config(args),
+                                   root / "dcase" / "model" / "teacher", SEED)
+                runs.append(train_lib.run_semi(args, device=d))
+    finally:
+        train_lib.semi_views = real_views
+    ref, got = runs
+    pairs = []
+    for r, g in zip(ref.epochs, got.epochs, strict=True):
+        assert sum(r["pseudo_counts"]) > 0, r["pseudo_counts"]
+        for key in ("loss_means", "val_loss_means", "val_f1"):
+            pairs += [(f"epoch {r['epoch']} {key} {k}", g[key][k], v) for k, v in r[key].items()]
+        for key in ("pseudo_counts", "thresholds"):
+            pairs += [(f"epoch {r['epoch']} {key} {c}", g[key][c], v)
+                      for c, v in enumerate(r[key])]
+    worst = 0.0
+    for name, g, r in pairs:
+        assert np.isfinite(g) and np.isclose(g, r, rtol=1e-3, atol=1e-3), (name, g, r)
+        worst = max(worst, abs(float(g) - float(r)))
+    print(f"tiny semi trainer, card vs CPU: {len(pairs)} values; pseudo counts "
+          f"{[e['pseudo_counts'] for e in got.epochs]}, thresholds "
+          f"{[e['thresholds'] for e in got.epochs]}")
+    return worst
+
+
+def busy_ms(fn, calls: int) -> float:
+    """Device time per call of ``fn`` under the profiler: its kernels' and
+    copies' time, summed (``profile``'s rows)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / calls / 1e3
+
+
+def split_semi_step(model, teacher, wd, cfg, optimizer, batch, flags, thr, gen, n_lab: int,
+                    card: str, calls: int = 3) -> None:
+    """The semi step's device time by part, each part profiled on its own
+    (without the mixups): the teacher's forward, the pseudo-labels, the
+    merged forward and the criterion (one joint solve), the backward (the
+    forward, criterion and backward less the forward and criterion), the
+    optimizer and the EMA."""
+    m = cfg.model
+    lab, unl = slice(0, n_lab), slice(n_lab, None)
+    tf, sf = train_lib.semi_views(batch.feats, cfg, gen)
+    teacher_forward = lambda: teacher(tf[unl], batch.pad_mask[unl], deterministic=True)
+    with torch.no_grad():
+        tea_out = teacher_forward()
+    pseudo = lambda: get_pseudo_labels(tea_out, thr, batch.targets.orig_size[unl], m.max_events)
+    targets_l = DenseTargets(*(t[lab] for t in batch.targets))
+    targets = DenseTargets(*(torch.cat([x, y]) for x, y in zip(targets_l, pseudo()[0])))
+    strong, weak, unlabel = flags
+
+    def forward_criterion():
+        out = model(torch.cat([tf[lab], sf[unl]]), torch.cat([batch.pad_mask[lab],
+                                                             batch.pad_mask[unl]]),
+                    deterministic=False, generator=gen)
+        mres, aux = joint_match(out, targets, cfg.loss, cfg.train.focal_loss)
+        rows = lambda r: {k: (v[:, r] if k.startswith("aux_") else v[r]) for k, v in out.items()}
+        cut = lambda r: (type(mres)(*(x[r] for x in mres)), type(aux)(*(x[:, r] for x in aux)))
+        loss = 0.0
+        for r, t, s, w in ((lab, targets_l, strong[lab], weak[lab]),
+                           (slice(n_lab, None), DenseTargets(*(x[n_lab:] for x in targets)),
+                            unlabel[unl], None)):
+            losses, _ = set_criterion(rows(r), t, s, w, m, cfg.loss, fl=cfg.train.focal_loss,
+                                      precomputed=cut(r))
+            loss = loss + total_loss(losses, wd)
+        return loss
+
+    with torch.no_grad():
+        parts = {"teacher forward": busy_ms(teacher_forward, calls),
+                 "pseudo-labels": busy_ms(pseudo, calls)}
+    with torch.enable_grad():
+        parts["merged forward and criterion"] = busy_ms(forward_criterion, calls)
+        parts["backward"] = (busy_ms(lambda: forward_criterion().backward(), calls)
+                             - parts["merged forward and criterion"])
+    parts["clip and AdamW"] = busy_ms(optimizer.step, calls)
+    parts["EMA"] = busy_ms(lambda: ema_update(teacher.parameters(), model.parameters(),
+                                              cfg.train.ema_decay), calls)
+    total = sum(parts.values())
+    for name, ms in parts.items():
+        print(f"semi step part {name}: {ms:.4f} ms of device time, {ms / total:.4f} of the "
+              f"parts' {total:.3f} ms ({card})")
+
+
+def mixed_rows_carry_labels(teacher, cfg, batch, thr, gen, n_lab: int, sizes) -> tuple:
+    """The step's mixup of labeled clips into the head of the unlabeled
+    stream, on the card: the teacher's pseudo targets of the step's clean
+    views, mixed with the labeled targets; some mixed head rows must hold
+    more events than their pseudo targets did.  Returns (rows that carry
+    labeled events, rows mixed)."""
+    tf, sf = train_lib.semi_views(batch.feats, cfg, gen)
+    unl = slice(n_lab, None)
+    with torch.no_grad():
+        pseudo, _ = get_pseudo_labels(teacher(tf[unl], batch.pad_mask[unl]), thr,
+                                      batch.targets.orig_size[unl], cfg.model.max_events)
+    labeled = DenseTargets(*(t[:n_lab] for t in batch.targets))
+    _, mixed = augment.mixup_label_unlabel(tf[:n_lab], sf[unl], labeled, pseudo, gen,
+                                           mix_up_ratio=cfg.augment.mix_up_ratio, alpha=1.0,
+                                           max_events=cfg.model.max_events)
+    n_mix = int(min(sizes[2], n_lab) * cfg.augment.mix_up_ratio)
+    carried = int((mixed.box_valid[:n_mix].sum(1) > pseudo.box_valid[:n_mix].sum(1)).sum())
+    assert carried > 0, "no mixed head row carries a labeled event"
+    assert torch.equal(mixed.box_valid[n_mix:], pseudo.box_valid[n_mix:])
+    return carried, n_mix
+
+
+def check_ema(teacher, before: list, model, decay: float) -> float:
+    """The teacher after a step with the EMA against d * e + (1 - d) * p over
+    every parameter (the frozen ones too), to 1e-6 of the terms' size;
+    returns the largest relative difference."""
+    worst = 0.0
+    for t, e, p in zip(teacher.parameters(), before, model.parameters(), strict=True):
+        e, p = e.double(), p.detach().double()
+        want = decay * e + (1 - decay) * p
+        scale = decay * e.abs() + (1 - decay) * p.abs()
+        rel = float(((t.double() - want).abs() / scale.clamp_min(1e-30)).max())
+        assert rel <= 1e-6, rel
+        worst = max(worst, rel)
+    return worst
+
+
+def run_semi_step_phase(dev: torch.device, card: str, latency: dict, clock_hz: float) -> dict:
+    """Phase 4g: the README's semi step (``SEMI_RECIPE``: ResNet-50 DC5, 3+3
+    layers, d 256, 20 queries, ``dec_at``, focal loss, mixup 0.6, frequency
+    mask and shift; dropout 0.1, bf16 autocast; 496 x 64, batch 64 = 16
+    strong + 16 weak + 32 unlabeled) through ``train_lib.semi_views`` and
+    ``make_semi_train_step``, the batch on the card: K1 once a step at
+    [192, 20, 20] and K2-K4 never; the EMA against its formula, the teacher
+    untouched without it, the student's frozen leaves and the FrozenBN
+    buffers bit for bit.  Returns K1's launches, parity error and timing on
+    the step's own cost."""
+    args = semi_args(SEMI_RECIPE)
+    cfg = train_lib.args_to_config(args)
+    m = cfg.model
+    bs = args.semi_batch_size
+    sizes = (bs // 4, bs // 4, bs // 2)
+    n_lab = sizes[0] + sizes[1]
+    model, wd = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    state = init_train_state(model, cfg, steps_per_epoch=100, schedule="cosine")
+    teacher = make_teacher(model)
+    step = make_semi_train_step(wd, cfg, fine_tune=cfg.train.fine_tune,
+                                normalize=cfg.train.normalize, fl=cfg.train.focal_loss,
+                                n_labeled=n_lab, device=dev)
+    cpu = semi_batch(cfg, sizes, SEED)
+    batch = Batch(feats=cpu.feats.to(dev), pad_mask=cpu.pad_mask.to(dev),
+                  targets=DenseTargets(*(t.to(dev) for t in cpu.targets)),
+                  strong=cpu.strong.to(dev), weak=cpu.weak.to(dev))
+    flags = semi_flags(sizes, dev)
+    thr = torch.full((m.num_classes,), SEMI_THRESHOLD, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def run(do_ema: bool = True):
+        tf, sf = train_lib.semi_views(batch.feats, cfg, gen)
+        return step(state, teacher, tf, sf, batch.pad_mask, batch.targets, *flags, thr, gen,
+                    do_ema)
+
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"semi step: {describe(cfg, bs, n_params)} ({sizes[0]} strong, {sizes[1]} weak, "
+          f"{sizes[2]} unlabeled), a teacher of {n_params} more, dropout {m.dropout}, mixup "
+          f"{cfg.augment.mix_up_ratio}, freq mask {cfg.augment.freq_mask}, freq shift "
+          f"{cfg.augment.freq_shift}, focal loss {cfg.train.focal_loss}, thresholds "
+          f"{SEMI_THRESHOLD}, EMA decay {cfg.train.ema_decay}")
+    before = leaves_by_rule(model)
+
+    (_, counts), costs = with_lsap_costs(run)  # warm-up 1, its cost kept
+    (cost,) = costs
+    assert cost.shape == (m.dec_layers * bs, m.num_queries, m.max_events), cost.shape
+    k1_err = k1_against_references(cost.cpu().numpy(), dev, "the semi step's own cost")
+    ema_before = [p.detach().clone() for p in teacher.parameters()]
+    run(True)
+    ema_err = check_ema(teacher, ema_before, model, cfg.train.ema_decay)
+    kept = {k: v.clone() for k, v in teacher.state_dict().items()}
+    run(False)
+    assert all(torch.equal(v, kept[k]) for k, v in teacher.state_dict().items()), (
+        "the teacher moved in a step without the EMA")
+    carried, n_mix = mixed_rows_carry_labels(teacher, cfg, batch, thr, gen, n_lab, sizes)
+    for _ in range(SEMI_WARMUP - 3):  # the three steps above warm up too
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_launch_counts()  # the main path: counts from here ...
+    losses, pseudo = [], []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SEMI_STEPS):
+        metrics, counts = run()
+        losses.append(metrics["loss"])
+        pseudo.append(counts)
+    stop.record()
+    stop.synchronize()
+    host_s = (time.perf_counter() - t0) / SEMI_STEPS
+    launched = launch_counts()  # ... to here
+    event_ms = start.elapsed_time(stop) / SEMI_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    pseudo = torch.stack(pseudo).cpu()
+    assert torch.isfinite(losses).all(), losses
+    assert launched["K1"] == SEMI_STEPS and launched["K2"] == launched["K3"] == launched["K4"] == 0, (
+        f"the semi step must launch K1 once a step and K2-K4 never: {launched}")
+    now = dict(model.named_parameters())
+    for n, v in before["frozen"].items():
+        assert torch.equal(now[n].detach(), v), f"frozen parameter {n} changed"
+    for n, b in model.named_buffers():
+        assert torch.equal(b, before["buffers"][n]), f"FrozenBN buffer {n} changed"
+    moved = sum(not torch.equal(now[n].detach(), v) for n, v in before["main"].items())
+    print(f"semi step: {event_ms:.3f} ms/step by CUDA events, {bs / event_ms * 1e3:.1f} clips/s; "
+          f"{host_s * 1e3:.3f} ms/step by the host clock; {SEMI_STEPS} steps, K1 "
+          f"{launched['K1']} launches at {list(cost.shape)}, K2-K4 none; losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; pseudo events a step {pseudo.sum(1).tolist()}, "
+          f"by class over the {SEMI_STEPS} steps {pseudo.sum(0).tolist()}; EMA within "
+          f"{ema_err:.3g} of d*e + (1-d)*p, teacher unchanged without it; {carried} of the "
+          f"{n_mix} mixed head rows' pseudo targets carry labeled events; {moved} of "
+          f"{len(before['main'])} main leaves moved, {len(before['frozen'])} frozen ones and "
+          f"{len(before['buffers'])} FrozenBN buffers unchanged; peak memory "
+          f"{peak / 2**30:.3f} GiB ({card})")
+    with FlopCounterMode(display=False) as counter:
+        run()
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    print(f"semi step: {flops / 1e9:.1f} GFLOP a step counted by FlopCounterMode (both "
+          f"forwards, the backward), {flops / bs / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms "
+          f"that is {flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+          f"{flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} of the dense bf16 peak ({card})")
+    profile(run, 3, "semi step", card, "semi_step_profile.txt")
+    split_semi_step(model, teacher, wd, cfg, state.optimizer, batch, flags, thr, gen, n_lab, card)
+    timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 3, latency,
+                     clock_hz)
+    return {"launches": launched["K1"], "err": k1_err, "shape": list(cost.shape),
+            "timing": timing}
+
+
+def semi_launches(args, sizes: dict) -> dict:
+    """K1's launches that the semi trainer's arguments call for on a DCASE
+    layout of ``sizes`` clips: one per plain train step, one per eval batch
+    (every epoch's validation, then validation and eval for each strategy's
+    final test)."""
+    bs = args.semi_batch_size
+    steps = min(sizes["strong"] // (bs // 4), sizes["weak"] // (bs // 4),
+                sizes["unlabel"] // (bs // 2))
+    batches = lambda n: -(-n // args.batch_size)
+    return {"train": args.epochs * steps,
+            "eval": args.epochs * batches(sizes["validate"])
+            + len(args.fusion_strategy) * (batches(sizes["validate"]) + batches(sizes["test"]))}
+
+
+def run_semi_chain(dev: torch.device, card: str, teacher_model: str) -> int:
+    """The chain's semi stage (phase 4f, after the fine-tune): ``run_semi``
+    at ``SEMI_RECIPE``'s width on the phase's DCASE layout (64 strong, 64
+    weak, 400 unlabeled clips: 4 steps an epoch, 2 epochs, a checkpoint
+    every epoch) from the fine-tune's best checkpoint, whose features are
+    cached already; K1 exactly as the arguments call for, K2-K4 none; the
+    final test on the best teacher; the best and periodic checkpoints load
+    back.  Returns K1's launches."""
+    args = semi_args(SEMI_CHAIN + ["--teacher_model", teacher_model])
+    want = semi_launches(args, SPSEDT_CLIPS)
+    t0 = time.perf_counter()
+    res, k1_train, k1_eval, counts, _ = counted_launches(lambda: train_lib.run_semi(args,
+                                                                                   device=dev))
+    wall_s = time.perf_counter() - t0
+    assert (k1_train, k1_eval) == (want["train"], want["eval"]), (
+        f"K1 launched {k1_train} times in train steps and {k1_eval} in eval steps, not "
+        f"{want['train']} and {want['eval']}")
+    assert counts["K2"] == counts["K3"] == counts["K4"] == 0, counts
+    assert [e["epoch"] for e in res.epochs] == list(range(args.epochs))
+    assert all(np.isfinite(e["loss"]) for e in res.epochs), res.epochs
+    assert res.bank and [r["model"] for r in res.final] == ["teacher"] * len(res.final)
+    model, _ = build_model(train_lib.args_to_config(args), device=dev)
+    for name in [f"{args.info}_{m}_best" for m in args.fusion_strategy] + [
+            f"{args.info}_{e}" for e in range(args.epochs)]:
+        ck = load_checkpoint(str(Path(res.model_dir) / name))
+        model.load_state_dict(ck["model"])
+        model.load_state_dict(ck["teacher"])
+    ckpt_s = 0.0
+    for e in res.epochs:
+        ckpt_s += e.get("checkpoint_s", 0.0)
+        print(f"semi trainer epoch {e['epoch']}: loss {e['loss']:.4f} (sup "
+              f"{sum(v for k, v in e['loss_means'].items() if k.startswith('sup_loss')):.4f}, "
+              f"unsup {sum(v for k, v in e['loss_means'].items() if k.startswith('unsup_loss')):.4f}"
+              f" unweighted), {e['train_s'] / e['steps'] * 1e3:.3f} ms/step over {e['steps']} "
+              f"steps, {args.semi_batch_size * e['steps'] / e['train_s']:.1f} clips/s, data wait "
+              f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step; pseudo counts "
+              f"{[int(c) for c in e['pseudo_counts']]}, thresholds next "
+              f"{[round(t, 4) for t in e['thresholds']]}; validation F1 {e['val_f1']}; "
+              f"checkpoint I/O {e.get('checkpoint_s', 0.0):.3f} s ({card})")
+    print(f"semi trainer ({args.info}, teacher {teacher_model}): {wall_s:.3f} s in all; K1 "
+          f"{k1_train} launches in train steps, {k1_eval} in eval steps, K2-K4 none; final "
+          f"test on the best teacher, eval F1 {res.f1}; checkpoint I/O {ckpt_s:.3f} s; every "
+          f"checkpoint loads back ({card})")
+    return k1_train + k1_eval
 
 
 # --------------------------------------------------------------- predict
@@ -2121,6 +2580,12 @@ def main() -> None:
     worst = small_spsedt_step(dev, SEED)
     print(f"tiny f32 SP-SEDT step, 2 steps, card vs CPU: ok, max |loss or parameter difference| "
           f"{worst:.3g}")
+    worst = small_semi_step(dev, SEED)
+    print(f"tiny f32 semi step, 2 steps, card vs CPU: ok, max |loss or parameter difference| "
+          f"{worst:.3g}")
+    worst = small_semi_trainer(dev)
+    print(f"tiny f32 semi trainer, 2 epochs, card vs CPU: ok, max |loss mean, count, threshold "
+          f"or F1 difference| {worst:.3g}")
 
     # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
@@ -2188,8 +2653,13 @@ def main() -> None:
     errs["K1"] = max(errs["K1"], spsedt["err"])
     torch.cuda.empty_cache()
 
-    # 4f. SP-SEDT pretrain -> fine-tune at full width on a DCASE layout on disk
+    # 4f. SP-SEDT pretrain -> fine-tune -> semi at full width on a DCASE layout on disk
     chain = run_spsedt_chain_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # 4g. the semi step at the README recipe's width, batch 64
+    semi = run_semi_step_phase(dev, card, latency, clock_hz)
+    errs["K1"] = max(errs["K1"], semi["err"])
     torch.cuda.empty_cache()
 
     # 5. long-clip predict at the flagship's width
@@ -2285,6 +2755,11 @@ def main() -> None:
          "launches_pretrain_chain": chain["pretrain"],
          "launches_fine_tune_chain": chain["fine_tune"],
          "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **spsedt["timing"]},
+        {"name": "K1 lsap_lane semi", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": semi["shape"], "launches": semi["launches"],
+         "launches_semi_chain": chain["semi"],
+         "variant": "warp, 1 column a lane", "max_abs_err": errs["K1"], **semi["timing"]},
         {"name": "K2 lsap_block", "source": hungarian_src,
          "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
          "shape": shapes["K2"], "launches": launches["K2"],

@@ -1,9 +1,10 @@
 """Console entry points of the port's trainers.
 
-Counterpart of the JAX package's ``cli.main_sedt`` and ``cli.main_spsedt``:
-the repo-root scripts ``train_sedt_torch.py`` and ``train_spsedt_torch.py``
-and the installed ``sedt-train-torch`` and ``sedt-pretrain-torch`` commands
-land here, so the flag defaulting lives in one place.
+Counterpart of the JAX package's ``cli.main_sedt``, ``cli.main_spsedt`` and
+``cli.main_semi``: the repo-root scripts ``train_sedt_torch.py``,
+``train_spsedt_torch.py`` and ``train_ss_sedt_torch.py`` and the installed
+``sedt-train-torch``, ``sedt-pretrain-torch`` and ``sedt-semi-torch``
+commands land here, so the flag defaulting lives in one place.
 """
 from __future__ import annotations
 
@@ -12,7 +13,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from .train_lib import PretrainResult, TrainResult, get_parser, run_spsedt, run_supervised
+from .train_lib import (
+    PretrainResult,
+    TrainResult,
+    get_parser,
+    run_semi,
+    run_spsedt,
+    run_supervised,
+)
 
 
 def sedt_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -66,3 +74,39 @@ def main_spsedt(argv: Optional[Sequence[str]] = None,
                 device: Optional[torch.device | str] = None) -> PretrainResult:
     """SP-SEDT self-supervised pretraining on the GPU (``device`` for tests)."""
     return run_spsedt(spsedt_args(argv), device=device)
+
+
+def semi_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The semi trainer's arguments: the trainer's flags and ``--ema_m``
+    (the teacher's EMA decay, set as ``ema_decay``), ``--semi_batch_size``
+    and ``--teacher_eval`` (on unless given: validate the teacher, not the
+    student); DCASE or ``--synthetic_smoke`` only; ``--eval`` runs the final
+    test only (``epochs`` 0, needs ``--info``); ``--info`` defaults to
+    ``semi_supervised_`` and a name built from the configuration."""
+    parser = get_parser()
+    parser.add_argument("--ema_m", type=float, default=0.9996,
+                        help="EMA decay of the teacher")
+    parser.add_argument("--semi_batch_size", default=64, type=int)
+    parser.add_argument("--teacher_eval", action="store_false", default=True,
+                        help="validate the student instead of the EMA teacher")
+    args = parser.parse_args(argv)
+    args.ema_decay = args.ema_m
+    if args.dataname != "dcase" and not args.synthetic_smoke:
+        parser.error("the semi trainer runs on the dcase dataset (or --synthetic_smoke) only")
+    if args.eval:
+        args.epochs = 0
+        if not args.info:
+            parser.error("give the model information (--info) to be evaluated")
+    if args.info is None:
+        args.info = (
+            f"semi_supervised_{args.dataname}_atloss_{args.weak_loss_coef}"
+            f"_atploss_{args.weak_loss_p_coef}_enc_{args.enc_layers}"
+            f"_pooling_{args.pooling}_{args.fusion_strategy}"
+        )
+    return args
+
+
+def main_semi(argv: Optional[Sequence[str]] = None,
+              device: Optional[torch.device | str] = None) -> TrainResult:
+    """Semi-supervised mean-teacher training on the GPU (``device`` for tests)."""
+    return run_semi(semi_args(argv), device=device)

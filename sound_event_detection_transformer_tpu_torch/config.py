@@ -3,7 +3,7 @@
 The port's own copy of the JAX package's ``config.py``: features, model, loss,
 data, augment and train dataclasses (everything ``train_lib.args_to_config``
 fills; the device-mesh layout waits for the multi-GPU slice), the
-``urbansed_supervised`` / ``tiny_test`` presets and
+``urbansed_supervised`` / ``tiny_test`` presets, ``DCASE_CLASS_PRIOR`` and
 ``load_classes_from_tsv``.  Field names, defaults and
 presets are the JAX package's, so a configuration means the same thing on
 both sides.
@@ -39,6 +39,13 @@ URBAN_CLASSES = (
     "jackhammer",
     "siren",
     "street_music",
+)
+
+# DCASE's class frequencies: the semi-supervised trainer adapts its
+# class-wise pseudo-label thresholds toward them (``engine.adjust_threshold``).
+DCASE_CLASS_PRIOR = (
+    0.09915014, 0.02266289, 0.08050047, 0.13385269, 0.13456091,
+    0.01534466, 0.02219075, 0.05594901, 0.41406988, 0.0217186,
 )
 
 

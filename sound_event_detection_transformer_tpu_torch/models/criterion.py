@@ -240,7 +240,10 @@ def joint_match(
 ) -> Tuple[MatchResult, Optional[MatchResult]]:
     """Plain matching of the final and all aux decoder layers in ONE batched
     LSAP solve: L layers x B clips problems, one launch of kernel K1 or K2.
-    Returns (final-layer result [B, ..], aux results [A, B, ..] or None)."""
+    Returns (final-layer result [B, ..], aux results [A, B, ..] or None);
+    :func:`set_criterion` takes the pair as ``precomputed``, so several
+    criterion calls can share one solve (the semi step's labeled and
+    pseudo-labeled problems)."""
     kw = _match_kw(lcfg, fl)
     if "aux_logits" not in outputs:
         m = match(outputs["pred_logits"], outputs["pred_boxes"], targets.labels,
@@ -261,6 +264,7 @@ def set_criterion(
     normalize: bool = False,
     fl: bool = False,
     generator: Optional[torch.Generator] = None,
+    precomputed: Optional[Tuple[MatchResult, Optional[MatchResult]]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Optional[MatchResult]]:
     """Full criterion; returns (losses, final-layer match result).
 
@@ -269,7 +273,9 @@ def set_criterion(
     final layer is matched alone (its relaxed stage draws from
     ``generator``) and the aux layers, matched plainly as in the JAX
     package, share a second solve.  The final layer's ``num_boxes``
-    normalises the aux layers too.
+    normalises the aux layers too.  ``precomputed``: an externally solved
+    ``(mres, aux_mres)`` pair (:func:`joint_match`) in place of the
+    criterion's own solve; plain matching only.
     """
     b = outputs["pred_boxes"].shape[0]
     dev = outputs["pred_boxes"].device
@@ -286,7 +292,12 @@ def set_criterion(
     num_boxes = torch.ones((), device=dev)
     has_aux = "aux_logits" in outputs
     if strong_mask is not None:
-        if has_aux and not fine_tune and not normalize:
+        if precomputed is not None:
+            if fine_tune or normalize:
+                raise ValueError("a precomputed matching is plain matching: no fine_tune "
+                                 "or normalize")
+            mres, aux_mres = precomputed
+        elif has_aux and not fine_tune and not normalize:
             mres, aux_mres = joint_match(outputs, targets, lcfg, fl)
         else:
             mres = match(

@@ -45,8 +45,14 @@ def generalized_box_iou(se1: torch.Tensor, se2: torch.Tensor) -> torch.Tensor:
 
 
 def elementwise_l1_se(se1: torch.Tensor, se2: torch.Tensor) -> torch.Tensor:
-    """Aligned L1 distance in (start, end) space: [..., 2] -> [...]."""
-    return (se1 - se2).abs().sum(-1)
+    """Aligned L1 distance in (start, end) space: [..., 2] -> [...].
+
+    Its subgradient at a zero difference is +1, as ``jnp.abs``'s is (torch's
+    ``abs`` gives 0): a prediction equal to its target, as the semi step's
+    is when the teacher equals the student, gets the JAX package's
+    gradient."""
+    d = se1 - se2
+    return torch.where(d >= 0, d, -d).sum(-1)
 
 
 def pairwise_l1_se(se1: torch.Tensor, se2: torch.Tensor) -> torch.Tensor:

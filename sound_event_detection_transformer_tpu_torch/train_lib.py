@@ -22,12 +22,16 @@ Counterpart of the JAX package's ``train_lib.py``:
   unlabeled clips, ``--synthetic_smoke`` or DCASE's
   ``unlabel_in_domain.tsv`` and with ``--extra_data`` its 2018 task 5 TSV;
   periodic and final checkpoints, resume), returning a
-  :class:`PretrainResult`.
+  :class:`PretrainResult`;
+* ``run_semi``: the mean-teacher semi-supervised trainer (strong, weak and
+  unlabeled clips in every batch, the clean/noisy view pair, the EMA
+  teacher's pseudo-labels, class-wise thresholds adapted each epoch, the
+  teacher's or the student's evaluation, checkpoints, resume), returning a
+  :class:`TrainResult`.
 
 Several processes, and the audio-tag backbone init of ``run_spsedt
 --pretrain``, raise ``NotImplementedError``, naming the ROADMAP item that
-brings them.  The semi-supervised and audio-tag trainers wait for their
-slices.
+brings them.  The audio-tag trainer waits for its slice.
 """
 from __future__ import annotations
 
@@ -52,10 +56,18 @@ from .data.scaler import Scaler
 from .data.synthetic import SyntheticDataset
 from .data.transforms import get_transforms
 from .data.tsv import unique
-from .engine import init_train_state, make_eval_step, make_train_step
+from .engine import (
+    adjust_threshold,
+    init_train_state,
+    make_eval_step,
+    make_semi_train_step,
+    make_teacher,
+    make_train_step,
+)
 from .metrics import PSDSEval, audio_tagging_results, compute_metrics, format_audio_tagging, psds_score
 from .models import build_model, resolve_device
 from .models.torch_import import load_imagenet_backbone
+from .ops import augment
 from .ops.frontend import make_frontend_fn
 from .parallel.distribute import get_reduced_loss, get_world_size
 from .utils.checkpoint import (
@@ -549,14 +561,15 @@ def evaluate(
 
 
 class TrainResult(NamedTuple):
-    """What :func:`run_supervised` measured."""
+    """What :func:`run_supervised` or :func:`run_semi` measured."""
 
     f1: Dict[int, float]  # the final test's F1 on eval, last strategy (as the JAX package)
     # per epoch: train loss means, lr, steps, seconds and the wait for
     # batches; with an evaluation its loss means, F1 and timings; the
-    # checkpoint seconds
+    # checkpoint seconds; ``run_semi``'s also the pseudo events per class
+    # and the thresholds adapted from them for the next epoch
     epochs: List[Dict]
-    final: List[Dict]  # per strategy of the final test: F1, PSDS and timings
+    final: List[Dict]  # per strategy of the final test: F1, PSDS or the model tested, timings
     bank: bool  # whether the feature bank held the features
     model_dir: str
     # on disk: seconds of the feature pass and the scaler, clips extracted
@@ -1004,3 +1017,281 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     return PretrainResult(epochs, bank=bank is not None, model_dir=model_dir,
                           checkpoint=osp.join(model_dir, cfg.train.info),
                           data_timings=dict(data["timings"], final_checkpoint_s=final["checkpoint_s"]))
+
+
+# ---------------------------------------------------------------------------
+# semi-supervised mean-teacher trainer
+# ---------------------------------------------------------------------------
+
+
+def build_semi_data(cfg: SEDTConfig, args, batch_sizes: Sequence[int]) -> Dict:
+    """The semi trainer's datasets: ``train`` is a :class:`ConcatDataset` of
+    the strong, weak and unlabeled streams (in that order), with the
+    validation and eval sets and the encoder.
+
+    ``--synthetic_smoke``: generated clips with the JAX package's seeds
+    (strong 0, weak 2, unlabeled 5, validation 1), each stream at least 4
+    batches of its share.  On disk: ``build_real_data``'s DCASE streams and
+    ``metadata/train/unlabel_in_domain.tsv`` through ``SedData`` and
+    ``DataLoadDf`` with the training scaler."""
+    if args.synthetic_smoke:
+        classes = list(cfg.data.classes)
+        enc = BoxEncoder(classes, seconds=cfg.features.max_len_seconds)
+        mk = lambda n, seed, **kw: SyntheticDataset(
+            n, classes, cfg.model.max_frames, cfg.model.n_mels, enc.encode_strong_df,
+            max_events=min(3, cfg.model.max_events), seconds=cfg.features.max_len_seconds,
+            seed=seed, **kw)
+        n_strong = max(args.smoke_clips // 4, 4 * batch_sizes[0])
+        n_weak = max(args.smoke_clips // 4, 4 * batch_sizes[1])
+        n_unlab = max(args.smoke_clips // 2, 4 * batch_sizes[2])
+        valid = mk(max(16, args.smoke_clips // 4), 1)
+        return {"train": ConcatDataset([mk(n_strong, 0), mk(n_weak, 2, weak_only=True),
+                                        mk(n_unlab, 5, unlabel=True)]),
+                "validation": valid, "eval": valid, "encoder": enc,
+                "ref_valid": valid.ref_rows(), "ref_eval": valid.ref_rows(), "timings": {}}
+    data = build_real_data(cfg, args)
+    root = osp.join(cfg.data.root, cfg.data.dataset_name)
+    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
+                 compute_log=False)
+    t0 = time.perf_counter()
+    rows = ds.initialize_and_get_df(osp.join(root, "metadata", "train", "unlabel_in_domain.tsv"),
+                                    nb_files=cfg.data.nb_files)
+    t = data["timings"]
+    t["features_s"] += time.perf_counter() - t0
+    t["extracted"] += ds.n_extracted
+    t["clips"] += len(unique(r["filename"] for r in rows))
+    unlab = DataLoadDf(rows, data["encoder"].encode_strong_df,
+                       get_transforms(cfg.model.max_frames, data["scaler"], compute_log=True),
+                       in_memory=cfg.data.in_memory, cache_transformed=cfg.data.in_memory)
+    data["train"] = ConcatDataset(list(data["train"].datasets) + [unlab])
+    return data
+
+
+def semi_views(feats: torch.Tensor, cfg: SEDTConfig,
+               generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the teacher's clean view, the student's noisy one) of a batch, drawn
+    from ``generator``: Gaussian noise at ``cfg.features.noise_snr`` on half
+    the clips, then the masks ``cfg.augment`` turns on, on the student's view
+    only."""
+    a = cfg.augment
+    clean, noisy = augment.gaussian_noise_pair(feats, generator, snr=cfg.features.noise_snr,
+                                               p=0.5)
+    if a.time_mask:
+        noisy = augment.time_mask(noisy, generator)
+    if a.freq_mask:
+        noisy = augment.freq_mask(noisy, generator)
+    if a.freq_shift:
+        noisy = augment.freq_shift(noisy, generator)
+    return clean, noisy
+
+
+def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
+    """The mean-teacher trainer, on ``--synthetic_smoke`` data or the DCASE
+    dataset under ``--data_root``, with the final test's event-based F1 on
+    the eval set (of the last fusion strategy, as the JAX package does) and
+    what the run measured.
+
+    Runs on ``device`` (the GPU when None).  A batch of
+    ``--semi_batch_size`` holds a quarter strong, a quarter weak and half
+    unlabeled clips.  The student starts from ``--teacher_model`` (a
+    checkpoint ``{"model": ...}`` of ``run_supervised``, under the model
+    dir; required unless ``--synthetic_smoke`` or ``--eval``), the teacher
+    as its copy.  Per step, from the step's generator: the clean and noisy
+    views, the masks on the noisy one, then ``make_semi_train_step``
+    (cosine lr, the EMA every ``accumlating_ema_steps`` steps).  Per epoch:
+    the metrics and pseudo counts summed on the device and fetched once, the
+    thresholds adapted from the counts (uploaded once for the next epoch),
+    the teacher's (``--teacher_eval``, the default) or the student's
+    validation with a best checkpoint per fusion strategy (student, teacher,
+    epoch) and early stopping, and every ``checkpoint_epochs`` a periodic
+    checkpoint with AdamW, the thresholds, the policies, the sampler's
+    stream and the step's generator, from which ``--resume`` goes on at the
+    next epoch as the uninterrupted run does.  Then the final test of each
+    strategy's best teacher (or student) on validation and eval.
+    """
+    dev = resolve_device(device)
+    _check_ported(args)
+    if getattr(args, "from_wavs", False):
+        raise ValueError("--from_wavs streams waveforms to the supervised trainer only")
+    if not (args.teacher_model or args.synthetic_smoke or args.eval):
+        raise SystemExit("please provide the teacher model (--teacher_model)")
+    cfg = args_to_config(args)
+    if args.log:
+        set_logger(cfg.train.info)
+    log = create_logger("train_ss_sedt_torch")
+    log.info("Semi-supervised SEDT, mean teacher (PyTorch)")
+    np.random.seed(cfg.train.seed)
+    epochs: List[Dict] = []
+    final: List[Dict] = []
+    nc = cfg.model.num_classes
+
+    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
+    os.makedirs(model_dir, exist_ok=True)
+    bs = args.semi_batch_size
+    batch_sizes = [bs // 4, bs // 4, 2 * bs // 4]
+    data = build_semi_data(cfg, args, batch_sizes)
+    enc, concat = data["encoder"], data["train"]
+    sampler = MultiStreamBatchSampler(concat, batch_sizes, seed=cfg.train.seed)
+    steps_per_epoch = max(len(sampler), 1)
+
+    model, weight_dict = init_model(cfg, dev)
+    if args.teacher_model:
+        model.load_state_dict(load_checkpoint(osp.join(model_dir, args.teacher_model))["model"])
+        log.info(f"using teacher model: {args.teacher_model}")
+    state = init_train_state(model, cfg, steps_per_epoch, schedule="cosine")
+    teacher = make_teacher(model)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    prior = np.asarray(C.DCASE_CLASS_PRIOR[:nc], np.float64)
+    prior = prior / prior.sum()
+    origin_threshold = np.full((nc,), 0.5)
+    thresholds = origin_threshold.copy()
+    best_saver = {m: SaveBest("sup") for m in cfg.train.fusion_strategy}
+    early = EarlyStopping(patience=cfg.train.early_stopping_patience,
+                          init_patience=cfg.train.early_stopping_init_wait,
+                          fusion_strategy=cfg.train.fusion_strategy)
+    start_epoch = 0
+    if args.resume:
+        ck = load_checkpoint(osp.join(model_dir, args.resume))
+        model.load_state_dict(ck["model"])
+        teacher.load_state_dict(ck["teacher"])
+        start_epoch = int(ck.get("epoch", -1)) + 1
+        if "optimizer" in ck:
+            state.optimizer.load_state_dict(ck["optimizer"])
+            _set_rng_state(sampler.rng, ck["sampler"])
+            gen.set_state(ck["generator"])
+            thresholds = ck["classwise_threshold"].numpy()
+            for m, sd in ck["save_best"].items():
+                best_saver[m].load_state_dict(sd)
+            early.load_state_dict(ck["early"])
+        log.info(f"resumed from {args.resume}: epoch {start_epoch} next")
+
+    semi_step = make_semi_train_step(weight_dict, cfg, fine_tune=cfg.train.fine_tune,
+                                     normalize=cfg.train.normalize, fl=cfg.train.focal_loss,
+                                     n_labeled=batch_sizes[0] + batch_sizes[1], device=dev)
+    eval_steps = {"teacher": make_eval_step(teacher, weight_dict, cfg, cfg.train.fusion_strategy,
+                                            device=dev),
+                  "student": make_eval_step(model, weight_dict, cfg, cfg.train.fusion_strategy,
+                                            device=dev)}
+    evaluated = "teacher" if args.teacher_eval else "student"
+    # the fixed batch layout's flags by position (the strong stream's rows
+    # are strong whether or not they hold events)
+    pos = torch.arange(bs)
+    flags = [f.to(dev) for f in (pos < batch_sizes[0], (pos >= batch_sizes[0])
+                                 & (pos < batch_sizes[0] + batch_sizes[1]),
+                                 pos >= batch_sizes[0] + batch_sizes[1])]
+    train_bank = maybe_bank(args, concat, cfg, dev, log=log)
+    valid_bank = maybe_bank(args, data["validation"], cfg, dev, log=log)
+    eval_bank = (valid_bank if data["eval"] is data["validation"]
+                 else maybe_bank(args, data["eval"], cfg, dev, log=log))
+
+    def epoch_step(threshold_dev: torch.Tensor):
+        """The step of one epoch as ``train_one_epoch`` calls it: the view
+        pair and the masks, then the semi step, the EMA by the epoch's step
+        count; the pseudo counts join the metrics."""
+        done = 0
+
+        def step(batch, generator):
+            nonlocal done
+            teacher_feats, student_feats = semi_views(batch.feats.to(dev, non_blocking=True),
+                                                      cfg, generator)
+            done += 1
+            metrics, counts = semi_step(state, teacher, teacher_feats, student_feats,
+                                        batch.pad_mask, batch.targets, *flags, threshold_dev,
+                                        generator, done % cfg.train.accumlating_ema_steps == 0)
+            return dict(metrics, pseudo_counts=counts)
+
+        step.device = dev
+        return step
+
+    def save(name: str, content: Dict, record: Dict) -> None:
+        t = time.perf_counter()
+        save_checkpoint(osp.join(model_dir, name), content)
+        record["checkpoint_s"] = record.get("checkpoint_s", 0.0) + time.perf_counter() - t
+
+    semi_weights = ({f"sup_{k}": v for k, v in weight_dict.items()}
+                    | {f"unsup_{k}": v for k, v in weight_dict.items()})
+    metrics: Dict[int, float] = {}
+    for epoch in range(start_epoch, args.epochs):
+        record: Dict = {"epoch": epoch}
+        epochs.append(record)
+        t0 = time.time()
+        mlog = MetricLogger(delimiter="  ")
+        # the thresholds go to the device once an epoch, compared in f32
+        threshold_dev = torch.as_tensor(thresholds, dtype=torch.float32).to(dev)
+        acc, timer = train_one_epoch(epoch_step(threshold_dev), concat, sampler, cfg, train_bank,
+                                     gen, log)
+        totals = acc.totals()  # the one fetch of the epoch
+        n_steps = acc.steps
+        train_s = time.time() - t0
+        counts = totals.pop("pseudo_counts", np.zeros(nc))
+        means = {k: float(v) / max(n_steps, 1) for k, v in totals.items()}
+        loss_mean = means.pop("loss", float("nan"))
+        get_reduced_loss(means, semi_weights, mlog)
+        mlog.update(loss=loss_mean)
+        thresholds = adjust_threshold(counts, origin_threshold, prior)
+        mlog.synchronize_between_processes()
+        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
+                 f"{timer.summary()}; pseudo counts {counts.astype(int).tolist()}")
+        log.info("Train averaged stats:\n" + str(mlog))
+        record.update(loss=loss_mean, loss_means=dict(means, loss=loss_mean), steps=n_steps,
+                      train_s=train_s, data_wait_s=timer.data_time.sum,
+                      pseudo_counts=counts.tolist(), thresholds=thresholds.tolist())
+        if not math.isfinite(loss_mean):
+            log.info(f"Loss is {loss_mean}, stopping training")
+            raise SystemExit(1)
+
+        log.info(f"{evaluated} model validation")
+        res = evaluate(eval_steps[evaluated], data["validation"], cfg, enc, data["ref_valid"],
+                       cfg.train.fusion_strategy, at=cfg.model.dec_at, weight_dict=weight_dict,
+                       bank=valid_bank)
+        metrics = res.f1
+        record.update(val_loss_means=res.loss_means, val_f1=dict(metrics),
+                      eval_timings=res.timings)
+        stop = False
+        for m, f1 in metrics.items():
+            if best_saver[m].apply(f1):
+                save(f"{cfg.train.info}_{m}_best", {
+                    "model": model.state_dict(), "teacher": teacher.state_dict(),
+                    "epoch": epoch, f"event_based_f1_{m}": f1}, record)
+            if early.apply(f1):
+                log.warning("EARLY STOPPING")
+                stop = True
+        if cfg.train.checkpoint_epochs and (epoch + 1) % cfg.train.checkpoint_epochs == 0:
+            save(f"{cfg.train.info}_{epoch}", {
+                "model": model.state_dict(), "teacher": teacher.state_dict(),
+                "optimizer": state.optimizer.state_dict(), "epoch": epoch,
+                "classwise_threshold": torch.from_numpy(np.asarray(thresholds, np.float64)),
+                "sampler": _rng_state(sampler.rng), "generator": gen.get_state(),
+                "save_best": {m: s.state_dict() for m, s in best_saver.items()},
+                "early": early.state_dict()}, record)
+        if stop:
+            break
+
+    # the final test of each strategy's best teacher (or student); without a
+    # best checkpoint the model last loaded is tested, the student at first
+    tested, tested_step = "student", eval_steps["student"]
+    for m in cfg.train.fusion_strategy:
+        record = {"fusion_strategy": m}
+        final.append(record)
+        best_path = osp.join(model_dir, f"{cfg.train.info}_{m}_best")
+        if osp.exists(best_path):
+            t = time.perf_counter()
+            ck = load_checkpoint(best_path)
+            (teacher if args.teacher_eval else model).load_state_dict(
+                ck["teacher" if args.teacher_eval else "model"])
+            tested, tested_step = evaluated, eval_steps[evaluated]
+            record.update(checkpoint_s=time.perf_counter() - t, loaded=best_path)
+            log.info(f"using the {tested} for the test")
+        record["model"] = tested
+        log.info("Metric on validation")
+        res = evaluate(tested_step, data["validation"], cfg, enc, data["ref_valid"], [m],
+                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True, bank=valid_bank)
+        record.update(valid_f1=res.f1[m], valid_timings=res.timings)
+        log.info("Metric on eval")
+        res = evaluate(tested_step, data["eval"], cfg, enc, data["ref_eval"], [m],
+                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True, bank=eval_bank)
+        metrics = res.f1
+        record.update(eval_f1=metrics[m], eval_timings=res.timings)
+    return TrainResult(metrics, epochs, final,
+                       bank=train_bank is not None and valid_bank is not None,
+                       model_dir=model_dir, data_timings=data.get("timings", {}))

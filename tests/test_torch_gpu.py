@@ -36,7 +36,12 @@ from sound_event_detection_transformer_tpu_torch.data.dataset import batch_itera
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
 from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
 from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
-from sound_event_detection_transformer_tpu_torch.engine import init_train_state, make_train_step
+from sound_event_detection_transformer_tpu_torch.engine import (
+    init_train_state,
+    make_semi_train_step,
+    make_teacher,
+    make_train_step,
+)
 from sound_event_detection_transformer_tpu_torch.models import build_model
 from sound_event_detection_transformer_tpu_torch.ops import flash_attention as fa
 from sound_event_detection_transformer_tpu_torch.ops import hungarian
@@ -369,3 +374,33 @@ def test_spsedt_step_launches_k1_once_and_keeps_lr0_leaves(cuda):
     assert hungarian.lsap_lane.launches - launches == 1
     assert torch.isfinite(metrics["loss"]).item() and "loss_feature_0" in metrics
     chip_smoke.check_spsedt_leaves(model, before)
+
+
+@pytest.mark.gpu
+def test_semi_step_on_card_matches_cpu(cuda):
+    chip_smoke.small_semi_step(cuda, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fine_tune,launches", [(False, 1), (True, 4)], ids=["plain", "fine_tune"])
+def test_k1_launches_per_semi_step(cuda, fine_tune, launches):
+    """A tiny semi step on the card: K1 once under plain matching (the
+    labeled and pseudo-labeled problems of every decoder layer in one
+    solve), twice per criterion under fine-tune; pseudo events found."""
+    cfg = chip_smoke.tiny_train_config()
+    sizes = (2, 2, 4)
+    batch = chip_smoke.semi_batch(cfg, sizes, seed=2)
+    model, wd = build_model(cfg, device=cuda, generator=torch.Generator().manual_seed(2))
+    state = init_train_state(model, cfg, steps_per_epoch=10, schedule="cosine")
+    teacher = make_teacher(model)
+    step = make_semi_train_step(wd, cfg, fine_tune=fine_tune, n_labeled=4, device=cuda)
+    thr = torch.full((cfg.model.num_classes,), 0.05, device=cuda)
+    args = (state, teacher, batch.feats, batch.feats * 1.0625, batch.pad_mask, batch.targets,
+            *chip_smoke.semi_flags(sizes, cuda), thr, torch.Generator(device=cuda).manual_seed(2),
+            True)
+    step(*args)
+    before = hungarian.lsap_lane.launches
+    metrics, counts = step(*args)
+    torch.cuda.synchronize()
+    assert hungarian.lsap_lane.launches - before == launches
+    assert torch.isfinite(metrics["loss"]).item() and counts.sum().item() > 0

@@ -15,11 +15,19 @@ from pathlib import Path
 import pytest
 import torch
 
-from sound_event_detection_transformer_tpu_torch.cli import main_sedt, main_spsedt, sedt_args, spsedt_args
+from sound_event_detection_transformer_tpu_torch.cli import (
+    main_semi,
+    main_sedt,
+    main_spsedt,
+    sedt_args,
+    semi_args,
+    spsedt_args,
+)
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.engine import (
     init_train_state,
     make_eval_step,
+    make_semi_train_step,
     make_train_step,
 )
 from sound_event_detection_transformer_tpu_torch.models import build_model, resolve_device
@@ -28,7 +36,7 @@ from sound_event_detection_transformer_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     scaled_dot_attention,
 )
-from sound_event_detection_transformer_tpu_torch.train_lib import run_spsedt, run_supervised
+from sound_event_detection_transformer_tpu_torch.train_lib import run_semi, run_spsedt, run_supervised
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,6 +45,7 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "sound_event_detection_transformer_t
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_torch.py",
                                         ROOT / "bench_torch.py", ROOT / "train_sedt_torch.py",
                                         ROOT / "train_spsedt_torch.py",
+                                        ROOT / "train_ss_sedt_torch.py",
                                         ROOT / "tools" / "time_jv_kernels.py"]
 
 
@@ -67,7 +76,8 @@ def test_the_disk_path_modules_are_scanned():
     names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
     assert {"data/tsv.py", "data/transforms.py", "data/collapse_event.py", "data/features.py",
             "data/wav_dataset.py", "data/dataset.py", "models/torch_import.py",
-            "train_lib.py", "ops/patches.py", "models/sedt.py", "cli.py"} <= names
+            "train_lib.py", "ops/patches.py", "models/sedt.py", "cli.py", "engine.py",
+            "config.py", "models/criterion.py"} <= names
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -90,7 +100,7 @@ def test_port_runs_without_loading_jax():
         "from sound_event_detection_transformer_tpu_torch.ops import augment, dropout, patches\n"
         "from sound_event_detection_transformer_tpu_torch.parallel import optim\n"
         "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
-        "import bench_torch, predict_torch, train_sedt_torch, train_spsedt_torch\n"
+        "import bench_torch, predict_torch, train_sedt_torch, train_spsedt_torch, train_ss_sedt_torch\n"
         "cfg = SEDTConfig.tiny_test()\n"
         "model, wd = build_model(cfg, device='cpu')\n"
         "m = cfg.model\n"
@@ -128,6 +138,14 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         run_spsedt(spsedt_args(argv))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_spsedt(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_semi_train_step(wd, cfg)
+    make_semi_train_step(wd, cfg, device="cpu")
+    argv = ["--dataname", "dcase", "--synthetic_smoke", "--log"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_semi(semi_args(argv))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_semi(argv)
 
 
 def test_bare_cuda_means_the_current_card(monkeypatch):
