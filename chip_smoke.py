@@ -42,7 +42,11 @@ nvcc for sm_90a, all started together), then:
    ``run_semi`` (2 epochs from a teacher checkpoint that favours one class,
    lr 1e-5) card against CPU: the pseudo counts exactly and above 0, the
    losses, the student and the teacher, the loss means, the adapted
-   thresholds and F1 to 1e-3;
+   thresholds and F1 to 1e-3; two tiny audio-tag updates (resnet18, 128 x
+   64, batch 4) and the tiny audio-tag trainer ``run_audio_tag`` (16
+   synthetic clips, 2 epochs) card against CPU: the losses, every
+   parameter, the loss means and F1 to 1e-3, every parameter moved (the
+   stem and ``layer1`` too), no K1-K4 launched;
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
@@ -99,12 +103,19 @@ nvcc for sm_90a, all started together), then:
    under the profiler (``chiprun_out/spsedt_step_profile.txt``), the FLOP
    share of the bf16 peak, the patch crop's device time and K1's time on the
    step's own cost;
-4f. drives the chain pretrain -> fine-tune at full width on disk: it writes a
-   seeded DCASE layout (``SPSEDT_CLIPS``: 400 unlabeled clips and 64 of
-   each other split, cut from DCASE 2019's sizes), runs ``run_spsedt`` on the
-   unlabeled ones (the recipe at batch 200, 2 epochs of 2 steps, the
-   ``.npy`` cache and the scaler built on the run, a checkpoint every epoch;
-   K1 exactly 4 launches, K2-K4 none), then ``run_supervised --dec_at
+4f. drives the DCASE chain audio tags -> pretrain -> fine-tune -> semi at
+   full width on disk: it writes a seeded DCASE layout (``SPSEDT_CLIPS``: 400
+   unlabeled clips and 64 of each other split, cut from DCASE 2019's sizes),
+   runs ``run_audio_tag`` at the README's AT command (``AT_CHAIN``: batch 64
+   on the 64 weak and 64 synthetic clips, 2 epochs of 2 steps, validation on
+   64 clips, the ``.npy`` cache and the ``_at`` scaler built on the run;
+   K1-K4 none; the best checkpoint ``at_avg_dcase`` loads back), then
+   ``run_spsedt --pretrain at_avg_dcase`` on the unlabeled clips (the recipe
+   at batch 200, 2 epochs of 2 steps, a checkpoint every epoch; K1 exactly
+   4 launches, K2-K4 none), checking the backbone surgery leaf for leaf
+   (every backbone parameter the audio-tag checkpoint's bit for bit, every
+   FrozenBN buffer its value before the load, no ``fc1``/``fc2`` key), then
+   ``run_supervised --dec_at
    --pretrain <that checkpoint>`` for 1 epoch at batch 32 with strategies
    1-3 (K1 4 + 14 launches), checking the surgery leaf for leaf (every
    loaded parameter the checkpoint's, the class heads and query row 0 their
@@ -115,7 +126,8 @@ nvcc for sm_90a, all started together), then:
    epoch; K1 8 + 4 launches, K2-K4 none; the final test on the best
    teacher; every checkpoint loads back); it prints the writing, the
    extraction and the scaler, per epoch ms/step and the data wait, the
-   pseudo counts and thresholds, and the checkpoint I/O;
+   audio-tag validation's time and F1, the pseudo counts and thresholds,
+   and the checkpoint I/O;
 4g. drives the semi step at the README's semi command (``SEMI_RECIPE``:
    ResNet-50 DC5, 3+3 layers, d 256, 20 queries, ``dec_at``, focal loss,
    mixup 0.6, frequency mask and shift; dropout 0.1, bf16 autocast;
@@ -131,6 +143,17 @@ nvcc for sm_90a, all started together), then:
    FLOP share of the bf16 peak, the idle share under the profiler
    (``chiprun_out/semi_step_profile.txt``), the device time of the step's
    parts and K1's time on the step's own cost;
+4h. drives the audio-tag step at the README's AT command (``AT_RECIPE`` at
+   the parser's defaults: ResNet-50 DC5, 496 x 64, batch 64, 10 classes, fc
+   2048 -> 1000 -> 10, f32 with cuDNN's default TF32 convolutions, lr 1e-4,
+   clip 0.1) through ``train_lib.init_audio_tag_model``,
+   ``make_audio_tag_optimizer`` and ``make_audio_tag_step``: K1-K4 never;
+   every loss finite, every parameter moved, the FrozenBN buffers bit for
+   bit; it prints ms/step and clips/s, the FLOPs a step and their share of
+   the dense TF32 (or f32) peak, the peak memory, the busy and idle share
+   and launches a step under the profiler (its table in the output
+   directory as ``at_step_profile.txt``), the time by kernel kind and the
+   device time of the forward, the backward and the clip with Adam;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -152,7 +175,8 @@ nvcc for sm_90a, all started together), then:
    times K1 also at every shape of ``K1_SHAPES`` on seeded costs, and for K4
    times the library call ``F.scaled_dot_product_attention``;
 8. profiles the 10 s evaluation step, the train step, a trainer epoch, the
-   SP-SEDT step, the semi step and the long predict into ``chiprun_out/``.
+   SP-SEDT step, the semi step, the audio-tag step and the long predict
+   into the output directory.
 
 It ends with a ``{"kernels": [...]}`` line, the card line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -179,11 +203,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from bench_torch import flagship_config, synthetic_batch
 from sound_event_detection_transformer_tpu_torch import train_lib
-from sound_event_detection_transformer_tpu_torch.cli import sedt_args, semi_args, spsedt_args
+from sound_event_detection_transformer_tpu_torch.cli import at_args, sedt_args, semi_args, spsedt_args
 from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data import wav_dataset
-from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate
-from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
+from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate, collate_weak
+from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder, ManyHotEncoder
 from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
 from sound_event_detection_transformer_tpu_torch.data.scaler import Scaler
 from sound_event_detection_transformer_tpu_torch.data.synthetic import SyntheticDataset
@@ -199,6 +223,7 @@ from sound_event_detection_transformer_tpu_torch.engine import (
     make_train_step,
 )
 from sound_event_detection_transformer_tpu_torch.models import (
+    AudioTagBackbone,
     build_model,
     postprocess,
     set_criterion,
@@ -219,7 +244,11 @@ from sound_event_detection_transformer_tpu_torch.ops import (
 )
 from sound_event_detection_transformer_tpu_torch.ops.frontend import make_frontend_fn
 from sound_event_detection_transformer_tpu_torch.ops.patches import extract_patches_device
-from sound_event_detection_transformer_tpu_torch.parallel.optim import ema_update, param_label
+from sound_event_detection_transformer_tpu_torch.parallel.optim import (
+    ema_update,
+    make_audio_tag_optimizer,
+    param_label,
+)
 from sound_event_detection_transformer_tpu_torch.predict_cli import make_infer
 from sound_event_detection_transformer_tpu_torch.utils.checkpoint import (
     load_checkpoint,
@@ -231,6 +260,7 @@ from sound_event_detection_transformer_tpu_torch.utils.checkpoint import (
 # in) and the tensor cores' dense bf16 rate (the type K4's inputs have).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # the tensor cores' dense TF32 rate (f32 convolutions under cuDNN's TF32)
 BF16_OPS_PER_S = 989e12
 # f32 operations per live column in one Dijkstra expansion of a JV kernel: two
 # subtractions, a compare and two selects to relax, a compare-select for the
@@ -345,6 +375,26 @@ TINY_SEMI = ["--dataname", "dcase", "--synthetic_smoke", "--smoke_clips", "16",
              "--num_queries", "6", "--epochs", "2", "--dropout", "0", "--compute_dtype",
              "float32", "--dec_at", "--lr", "1e-5", "--lr_backbone", "1e-5", "--log", "--info",
              "tiny_semi", "--teacher_model", "teacher"]
+# the audio-tag trainer: the README's AT command (``train_at.py --dataname
+# dcase --pooling avg``: ResNet-50 DC5, 496 x 64, batch 64, 10 classes, fc
+# 2048 -> 1000 -> 10, f32, lr 1e-4, clip 0.1) at the parser's defaults, no
+# cut; then the chain's first stage on phase 4f's DCASE layout (64 weak + 64
+# synthetic clips: 2 steps an epoch, 2 epochs, one validation batch of 64);
+# and the tiny trainer (resnet18, 16 clips, 2 epochs) card against CPU
+AT_RECIPE = ["--dataname", "dcase", "--pooling", "avg", "--log"]
+AT_WARMUP = 3  # recipe steps before the timed ones
+AT_STEPS = 10  # timed recipe steps
+AT_CHAIN = AT_RECIPE + ["--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP, "--epochs", "2"]
+TINY_AT = ["--dataname", "dcase", "--synthetic_smoke", "--smoke_clips", "16", "--batch_size",
+           "4", "--backbone", "resnet18", "--epochs", "2", "--log", "--exp_root"]
+# kernel names by kind, the first match deciding (lower case); the rest are
+# elementwise kernels
+KERNEL_KINDS = (("copy", ("memcpy", "memset")),
+                ("layout transpose", ("nchwtonhwc", "nhwctonchw")),
+                ("convolution", ("xmma", "conv", "implicit", "cudnn", "wgrad", "dgrad", "fprop")),
+                ("matmul", ("gemm", "cublas", "cutlass")),
+                ("Adam", ("adam",)),
+                ("reduction", ("reduce", "norm")))
 SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
 PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
 
@@ -1653,6 +1703,248 @@ def small_disk_trainers(dev: torch.device) -> float:
     return worst
 
 
+# --------------------------------------------------------------- audio tags
+
+
+def at_batch(cfg: SEDTConfig, batch: int, seed: int) -> tuple:
+    """``batch`` synthetic clips at the config's geometry with clip labels
+    only, as (features [B, T, F, 1], multi-hot [B, C]) on the CPU."""
+    m = cfg.model
+    mhe = ManyHotEncoder(list(cfg.data.classes), n_frames=m.max_frames)
+    ds = SyntheticDataset(batch, cfg.data.classes, m.max_frames, m.n_mels, mhe.encode_weak,
+                          max_events=2, seed=seed, weak_only=True)
+    return collate_weak([ds[i] for i in range(batch)])
+
+
+def audio_tag_step(args, cfg: SEDTConfig, dev: torch.device) -> tuple:
+    """(model, optimizer, step) of the audio-tag trainer for ``args`` on
+    ``dev``, through the trainer's own functions."""
+    model = train_lib.init_audio_tag_model(cfg, args.pooling, dev)
+    optimizer = make_audio_tag_optimizer(model, args.lr, args.lr_drop, 100,
+                                         train_lib.AT_CLIP_MAX_NORM)
+    return model, optimizer, train_lib.make_audio_tag_step(model, optimizer)
+
+
+def check_audio_tag_leaves(model, params: dict, buffers: dict) -> None:
+    """After audio-tag updates: every parameter moved, the stem and
+    ``layer1`` too (nothing is frozen), and every FrozenBN buffer is as it
+    was, bit for bit."""
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p.detach(), params[n])}
+    assert moved == set(params), f"not moved: {sorted(set(params) - moved)}"
+    assert {"backbone.conv0.weight", "backbone.conv1.weight",
+            "backbone.layer1_0.conv1.weight"} <= moved
+    for n, b in model.named_buffers():
+        assert torch.equal(b, buffers[n]), f"FrozenBN buffer {n} changed"
+
+
+def small_audio_tag_step(dev: torch.device, seed: int, steps: int = 2) -> float:
+    """Two tiny audio-tag updates (``TINY_AT``: resnet18 on 128 x 64, batch 4,
+    f32) on the card against the CPU from the same weights, TF32 off: the
+    losses and every parameter after each update to 1e-3; on the card every
+    parameter moved, the buffers bit for bit and K1-K4 never launched.
+    Returns the largest difference."""
+    args = at_args(TINY_AT + [TRAIN_ROOT + "_at"])
+    cfg = train_lib.args_to_config(args)
+    x, y = at_batch(cfg, 4, seed)
+    runs = []  # the CPU's, then the card's
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            model, _, step = audio_tag_step(args, cfg, d)
+            params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            buffers = {n: b.clone() for n, b in model.named_buffers()}
+            reset_launch_counts()
+            runs.append([])
+            for _ in range(steps):
+                loss = step(x.to(d), y.to(d))
+                runs[-1].append((loss.cpu(), {k: v.cpu().clone()
+                                              for k, v in model.state_dict().items()}))
+            counts = launch_counts()
+            assert not any(counts.values()), f"the audio-tag step launched a kernel: {counts}"
+            check_audio_tag_leaves(model, params, buffers)
+    worst = 0.0
+    for (ref_l, ref_p), (got_l, got_p) in zip(*runs):
+        assert torch.isfinite(got_l).item() and torch.allclose(got_l, ref_l, rtol=1e-3,
+                                                               atol=1e-3), (got_l, ref_l)
+        worst = max(worst, float((got_l - ref_l).abs()))
+        for k, r in ref_p.items():
+            assert torch.allclose(got_p[k], r, rtol=1e-3, atol=1e-3), k
+            worst = max(worst, float((got_p[k] - r).abs().max()))
+    return worst
+
+
+def small_audio_tag_trainer(dev: torch.device) -> float:
+    """``run_audio_tag`` at the tiny size (``TINY_AT``: 16 synthetic clips,
+    2 epochs) on the card and on the CPU, TF32 off: each epoch's loss mean
+    and validation F1 to 1e-3, the same best checkpoint.  Returns the largest
+    difference."""
+    runs = []  # the CPU's, then the card's
+    with cudnn_tf32_off():
+        for d in (torch.device("cpu"), dev):
+            root = Path(TRAIN_ROOT + "_at_tiny") / d.type
+            shutil.rmtree(root, ignore_errors=True)
+            runs.append(train_lib.run_audio_tag(at_args(TINY_AT + [str(root)]), device=d))
+    ref, got = runs
+    worst = 0.0
+    for r, g in zip(ref.epochs, got.epochs, strict=True):
+        for key in ("loss", "f1"):
+            assert np.isfinite(g[key]) and np.isclose(g[key], r[key], rtol=1e-3, atol=1e-3), (
+                r["epoch"], key, g[key], r[key])
+            worst = max(worst, abs(g[key] - r[key]))
+    assert Path(got.checkpoint).name == Path(ref.checkpoint).name == "at_avg_dcase"
+    print(f"tiny audio-tag trainer, card vs CPU: losses {[round(e['loss'], 5) for e in got.epochs]}"
+          f", F1 {[round(e['f1'], 5) for e in got.epochs]}")
+    return worst
+
+
+def kernel_kinds(rows: list, calls: int) -> dict:
+    """``profile``'s rows summed by ``KERNEL_KINDS``: {kind: (ms each call,
+    launches each call)}."""
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for key, us, count in rows:
+        name = key.lower()
+        kind = next((k for k, pats in KERNEL_KINDS if any(p in name for p in pats)),
+                    "elementwise and other")
+        out[kind][0] += us / calls / 1e3
+        out[kind][1] += count // calls
+    return {k: tuple(v) for k, v in sorted(out.items(), key=lambda kv: -kv[1][0])}
+
+
+def run_audio_tag_step_phase(dev: torch.device, card: str) -> dict:
+    """Phase 4h: the audio-tag step at the README's AT command (``AT_RECIPE``
+    at the parser's defaults: ResNet-50 DC5, 496 x 64, batch 64, 10 classes,
+    fc 2048 -> 1000 -> 10, f32 with cuDNN's default TF32 convolutions, lr
+    1e-4, clip 0.1) through ``init_audio_tag_model``,
+    ``make_audio_tag_optimizer`` and ``make_audio_tag_step``, the batch on the
+    card: K1-K4 never; every loss finite, every parameter moved, the FrozenBN
+    buffers bit for bit.  Returns the launch counts of the timed steps."""
+    args = at_args(AT_RECIPE)
+    cfg = train_lib.args_to_config(args)
+    m = cfg.model
+    bs = cfg.data.batch_size
+    model, optimizer, step = audio_tag_step(args, cfg, dev)
+    x, y = (t.to(dev) for t in at_batch(cfg, bs, SEED))
+    tf32 = torch.backends.cudnn.allow_tf32
+    rate, rate_name = (TF32_OPS_PER_S, "TF32") if tf32 else (F32_OPS_PER_S, "f32")
+    print(f"audio-tag step: {m.backbone} dilation={m.dilation} pooling {args.pooling}, fc "
+          f"{model.fc1.in_features} -> {model.fc1.out_features} -> {model.fc2.out_features}, "
+          f"input {m.max_frames}x{m.n_mels} batch {bs}, f32 (cuDNN allow_tf32 {tf32}, matmul "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}), lr {args.lr}, clip "
+          f"{train_lib.AT_CLIP_MAX_NORM}, {sum(p.numel() for p in model.parameters())} parameters")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    for _ in range(AT_WARMUP):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    reset_launch_counts()  # the main path: counts from here ...
+    losses = []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(AT_STEPS):
+        losses.append(step(x, y))
+    stop.record()
+    stop.synchronize()
+    host_s = (time.perf_counter() - t0) / AT_STEPS
+    counts = launch_counts()  # ... to here
+    event_ms = start.elapsed_time(stop) / AT_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    assert torch.isfinite(losses).all(), losses
+    assert not any(counts.values()), f"the audio-tag step must launch no K1-K4: {counts}"
+    check_audio_tag_leaves(model, params, buffers)
+    print(f"audio-tag step: {event_ms:.3f} ms/step by CUDA events, {bs / event_ms * 1e3:.1f} "
+          f"clips/s; {host_s * 1e3:.3f} ms/step by the host clock; {AT_STEPS} steps, K1-K4 no "
+          f"launch; losses {losses[0]:.4f} .. {losses[-1]:.4f}; all {len(params)} parameters "
+          f"moved, {len(buffers)} FrozenBN buffers unchanged; peak memory {peak / 2**30:.3f} GiB "
+          f"({card})")
+    with FlopCounterMode(display=False) as counter:
+        step(x, y)
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    print(f"audio-tag step: {flops / 1e9:.1f} GFLOP a step counted by FlopCounterMode, "
+          f"{flops / bs / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms that is "
+          f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, {flops / (event_ms * 1e-3) / rate:.4f} "
+          f"of the dense {rate_name} peak ({rate / 1e12:.0f} TFLOP/s) ({card})")
+    rows = profile(lambda: step(x, y), 3, "audio-tag step", card, "at_step_profile.txt")
+    for kind, (ms, n) in kernel_kinds(rows, 3).items():
+        print(f"audio-tag step kernels {kind}: {ms:.4f} ms in {n} launches a step ({card})")
+    loss_fn = lambda: F.binary_cross_entropy_with_logits(model(x), y)
+    parts = {"forward and loss": busy_ms(loss_fn, 3)}
+    parts["backward"] = busy_ms(lambda: loss_fn().backward(), 3) - parts["forward and loss"]
+    parts["clip and Adam"] = busy_ms(optimizer.step, 3)
+    total = sum(parts.values())
+    for name, ms in parts.items():
+        print(f"audio-tag step part {name}: {ms:.4f} ms of device time, {ms / total:.4f} of the "
+              f"parts' {total:.3f} ms ({card})")
+    return counts
+
+
+def run_audio_tag_chain(dev: torch.device, card: str) -> dict:
+    """The chain's audio-tag stage (phase 4f, first): ``run_audio_tag`` at
+    ``AT_RECIPE``'s width on the phase's DCASE layout (64 weak + 64 synthetic
+    training clips at batch 64: 2 steps an epoch, 2 epochs; 64 validation
+    clips in one batch), the ``.npy`` cache and the scaler built on the run:
+    K1-K4 never; every epoch's loss finite; the best checkpoint
+    ``at_avg_dcase`` loads back into the model.  Returns its name and the
+    launch counts."""
+    args = at_args(AT_CHAIN)
+    t0 = time.perf_counter()
+    res, _, _, counts, _ = counted_launches(lambda: train_lib.run_audio_tag(args, device=dev))
+    wall_s = time.perf_counter() - t0
+    n_train = SPSEDT_CLIPS["weak"] + SPSEDT_CLIPS["strong"]
+    steps = n_train // args.batch_size
+    assert not any(counts.values()), f"the audio-tag trainer must launch no K1-K4: {counts}"
+    assert [e["epoch"] for e in res.epochs] == list(range(args.epochs))
+    assert all(np.isfinite(e["loss"]) and e["steps"] == steps for e in res.epochs), res.epochs
+    assert sorted(p.name for p in Path(res.model_dir).iterdir()) == ["at_avg_dcase"]
+    d = res.data_timings
+    assert d["extracted"] == d["clips"] == n_train + SPSEDT_CLIPS["validate"], d
+    ck = load_checkpoint(res.checkpoint)
+    AudioTagBackbone(args.backbone, args.dilation, args.pooling).load_state_dict(ck["model"])
+    print(f"audio-tag trainer ({args.info}): {wall_s:.3f} s in all; feature extraction "
+          f"{d['extracted']} clips in {d['features_s']:.3f} s, "
+          f"{d['features_s'] / d['extracted'] * 1e3:.3f} ms a clip; scaler pass "
+          f"{d['scaler_s']:.3f} s; K1-K4 no launch; best checkpoint of epoch {ck['epoch']} "
+          f"loads back ({card})")
+    for e in res.epochs:
+        print(f"audio-tag trainer epoch {e['epoch']}: loss {e['loss']:.4f}, "
+              f"{e['train_s'] / e['steps'] * 1e3:.3f} ms/step over {e['steps']} steps, "
+              f"{args.batch_size * e['steps'] / e['train_s']:.1f} clips/s, data wait "
+              f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step; validation "
+              f"{e['val_s'] * 1e3:.3f} ms, clip macro F1 {e['f1']:.4f}; checkpoint I/O "
+              f"{e.get('checkpoint_s', 0.0):.3f} s ({card})")
+    return {"name": Path(res.checkpoint).name, "counts": counts}
+
+
+def checked_audio_tag_load(record: dict):
+    """``train_lib.load_audio_tag_backbone`` checking, right after the load,
+    the surgery's rules: every backbone parameter equals the audio-tag
+    checkpoint's bit for bit, every other entry of the model (every FrozenBN
+    buffer among them) is as it was, and nothing of the head (``fc1``,
+    ``fc2``) lands."""
+    real = train_lib.load_audio_tag_backbone
+
+    def load(model, state):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loaded = real(model, state)
+        after = model.state_dict()
+        backbone = {n for n, _ in model.named_parameters() if n.startswith("backbone.")}
+        assert set(loaded) == backbone, sorted(backbone ^ set(loaded))
+        for n, v in after.items():
+            if n in backbone:
+                assert torch.equal(v.cpu(), state[n]), n
+            else:
+                assert torch.equal(v, before[n]), n
+        assert not any(k.startswith(("fc1.", "fc2.")) for k in after)
+        record.update(loaded=loaded, buffers=sum(1 for _ in model.buffers()),
+                      dropped=sorted(k for k in state if k not in after))
+        return loaded
+
+    return load
+
+
 # --------------------------------------------------------------- SP-SEDT
 
 
@@ -1846,14 +2138,17 @@ def checked_pretrain_load(record: dict):
 
 
 def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
-    """Phase 4f: pretrain -> fine-tune at full width on disk.  It writes a
-    seeded DCASE layout (``SPSEDT_CLIPS``), runs ``run_spsedt`` on its
-    unlabeled clips (``SPSEDT_CHAIN``: the recipe at batch 200, 2 epochs of
-    2 steps, the ``.npy`` cache and the scaler built on the run, a checkpoint
-    every epoch; K1 4 launches, K2-K4 none), then ``run_supervised --dec_at
-    --pretrain <its checkpoint>`` for 1 epoch at batch 32 (16 strong and 16
-    weak clips a step; strategies 1-3), whose surgery is checked leaf for
-    leaf.  Returns K1's launches."""
+    """Phase 4f: audio tags -> pretrain -> fine-tune -> semi at full width on
+    disk.  It writes a seeded DCASE layout (``SPSEDT_CLIPS``), runs
+    ``run_audio_tag`` on its weak and synthetic clips (``AT_CHAIN``; K1-K4
+    none), then ``run_spsedt --pretrain at_avg_dcase`` on its unlabeled clips
+    (``SPSEDT_CHAIN``: the recipe at batch 200, 2 epochs of 2 steps, the
+    ``.npy`` cache and the scaler built on the run, a checkpoint every epoch;
+    K1 4 launches, K2-K4 none), whose backbone surgery is checked leaf for
+    leaf, then ``run_supervised --dec_at --pretrain <its checkpoint>`` for 1
+    epoch at batch 32 (16 strong and 16 weak clips a step; strategies 1-3),
+    whose surgery is checked leaf for leaf, then the semi stage.  Returns the
+    audio-tag stage's launch counts and the other stages' K1 launches."""
     shutil.rmtree(SPSEDT_ROOT, ignore_errors=True)
     shutil.rmtree(SPSEDT_EXP, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1862,11 +2157,19 @@ def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
     n = sum(SPSEDT_CLIPS.values())
     print(f"SP-SEDT chain dataset: {n} DCASE clips of 10 s at 16 kHz ({SPSEDT_CLIPS}) written "
           f"in {write_s:.3f} s, {write_s / n * 1e3:.3f} ms a clip ({card})")
-    args = spsedt_args(SPSEDT_CHAIN)
+    at = run_audio_tag_chain(dev, card)
+    args = spsedt_args(SPSEDT_CHAIN + ["--pretrain", at["name"]])
+    at_surgery: dict = {}
+    real_load = train_lib.load_audio_tag_backbone
+    train_lib.load_audio_tag_backbone = checked_audio_tag_load(at_surgery)
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    pre, k1, _, counts, _ = counted_launches(lambda: train_lib.run_spsedt(args, device=dev))
-    wall_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        pre, k1, _, counts, _ = counted_launches(lambda: train_lib.run_spsedt(args, device=dev))
+        wall_s = time.perf_counter() - t0
+    finally:
+        train_lib.load_audio_tag_backbone = real_load
+    assert at_surgery, "the pretrainer did not load the audio-tag checkpoint"
     peak = torch.cuda.max_memory_allocated(dev)
     steps = SPSEDT_CLIPS["unlabel"] // args.batch_size
     assert k1 == args.epochs * steps and counts["K2"] == counts["K3"] == counts["K4"] == 0, (
@@ -1875,9 +2178,14 @@ def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
     assert all(np.isfinite(e["loss"]) and e["steps"] == steps for e in pre.epochs), pre.epochs
     assert pre.bank, "the pretrainer did not hold its features in a bank"
     names = sorted(p.name for p in Path(pre.model_dir).iterdir())
-    assert names == sorted([args.info] + [f"{args.info}_{e}" for e in range(args.epochs)]), names
+    assert names == sorted([at["name"], args.info]
+                           + [f"{args.info}_{e}" for e in range(args.epochs)]), names
     d = pre.data_timings
     assert d["extracted"] == d["clips"] == SPSEDT_CLIPS["unlabel"], d
+    print(f"SP-SEDT pretrainer --pretrain {at['name']}: {len(at_surgery['loaded'])} backbone "
+          f"parameters loaded bit for bit, {at_surgery['buffers']} FrozenBN buffers kept (not "
+          f"the checkpoint's statistics), {len(at_surgery['dropped'])} checkpoint entries "
+          f"without a home (the head) ({card})")
     print(f"SP-SEDT pretrainer ({args.info}): {wall_s:.3f} s in all; feature extraction "
           f"{d['extracted']} clips in {d['features_s']:.3f} s, "
           f"{d['features_s'] / d['extracted'] * 1e3:.3f} ms a clip; scaler pass "
@@ -1926,7 +2234,8 @@ def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
           f"{e['data_wait_s'] / e['steps'] * 1e3:.3f} ms/step; K1 {k1_train} launches in train "
           f"steps, {k1_eval} in eval steps, K2-K4 none; F1 {ft.f1} ({card})")
     semi = run_semi_chain(dev, card, f"{ft_args.info}_{ft_args.fusion_strategy[0]}_best")
-    return {"pretrain": k1, "fine_tune": k1_train + k1_eval, "semi": semi}
+    return {"audio_tag": at["counts"], "pretrain": k1, "fine_tune": k1_train + k1_eval,
+            "semi": semi}
 
 
 # ------------------------------------------------------------- semi trainer
@@ -2472,9 +2781,10 @@ def run_long_predict(cfg: SEDTConfig, model, dev: torch.device, card: str) -> di
 # --------------------------------------------------------------- profile
 
 
-def profile(fn, calls: int, label: str, card: str, file_name: str) -> None:
-    """A torch.profiler table of ``calls`` calls of ``fn``, written to
-    chiprun_out/, and the device's busy and idle share of them."""
+def profile(fn, calls: int, label: str, card: str, file_name: str) -> list:
+    """A torch.profiler table of ``calls`` calls of ``fn``, written to the
+    output directory, and the device's busy and idle share of them; returns
+    the device rows (name, µs, count over the calls)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
@@ -2503,6 +2813,7 @@ def profile(fn, calls: int, label: str, card: str, file_name: str) -> None:
     (out_dir / file_name).write_text(
         f"{card}\n" + "\n".join(lines) + "\n\n"
         + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    return rows
 
 
 def split_eval_step(model, cfg, batch_cpu, valid, card: str) -> None:
@@ -2586,6 +2897,12 @@ def main() -> None:
     worst = small_semi_trainer(dev)
     print(f"tiny f32 semi trainer, 2 epochs, card vs CPU: ok, max |loss mean, count, threshold "
           f"or F1 difference| {worst:.3g}")
+    worst = small_audio_tag_step(dev, SEED)
+    print(f"tiny f32 audio-tag step, 2 steps, card vs CPU: ok, max |loss or parameter "
+          f"difference| {worst:.3g}")
+    worst = small_audio_tag_trainer(dev)
+    print(f"tiny f32 audio-tag trainer, 2 epochs, card vs CPU: ok, max |loss mean or F1 "
+          f"difference| {worst:.3g}")
 
     # 4. the flagship evaluation step, 10 s clips
     cfg = SEDTConfig.urbansed_supervised()
@@ -2653,13 +2970,17 @@ def main() -> None:
     errs["K1"] = max(errs["K1"], spsedt["err"])
     torch.cuda.empty_cache()
 
-    # 4f. SP-SEDT pretrain -> fine-tune -> semi at full width on a DCASE layout on disk
+    # 4f. audio tags -> SP-SEDT pretrain -> fine-tune -> semi at full width on a DCASE layout
     chain = run_spsedt_chain_phase(dev, card)
     torch.cuda.empty_cache()
 
     # 4g. the semi step at the README recipe's width, batch 64
     semi = run_semi_step_phase(dev, card, latency, clock_hz)
     errs["K1"] = max(errs["K1"], semi["err"])
+    torch.cuda.empty_cache()
+
+    # 4h. the audio-tag step at the README's AT command, batch 64
+    at_step = run_audio_tag_step_phase(dev, card)
     torch.cuda.empty_cache()
 
     # 5. long-clip predict at the flagship's width
@@ -2786,7 +3107,10 @@ def main() -> None:
              "max_abs_err": errs[f"K4 {sq}"],
              "max_abs_err_f32": errs["K4 float32"], **timing[f"K4 {name}"]})
     for kernel in kernels:
-        kernel.update(route="cuda", parity="ok")
+        # the audio-tag step and trainer run no kernel of the four (asserted above)
+        kernel.update(route="cuda", parity="ok",
+                      launches_audio_tag_step=at_step[kernel["name"].split()[0]],
+                      launches_audio_tag_chain=chain["audio_tag"][kernel["name"].split()[0]])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """Console entry points of the port's trainers.
 
-Counterpart of the JAX package's ``cli.main_sedt``, ``cli.main_spsedt`` and
-``cli.main_semi``: the repo-root scripts ``train_sedt_torch.py``,
-``train_spsedt_torch.py`` and ``train_ss_sedt_torch.py`` and the installed
-``sedt-train-torch``, ``sedt-pretrain-torch`` and ``sedt-semi-torch``
+Counterpart of the JAX package's ``cli.main_sedt``, ``cli.main_spsedt``,
+``cli.main_semi`` and ``cli.main_at``: the repo-root scripts
+``train_sedt_torch.py``, ``train_spsedt_torch.py``, ``train_ss_sedt_torch.py``
+and ``train_at_torch.py`` and the installed ``sedt-train-torch``,
+``sedt-pretrain-torch``, ``sedt-semi-torch`` and ``sedt-audio-tag-torch``
 commands land here, so the flag defaulting lives in one place.
 """
 from __future__ import annotations
@@ -14,9 +15,11 @@ from typing import Optional, Sequence
 import torch
 
 from .train_lib import (
+    AudioTagResult,
     PretrainResult,
     TrainResult,
     get_parser,
+    run_audio_tag,
     run_semi,
     run_spsedt,
     run_supervised,
@@ -110,3 +113,29 @@ def main_semi(argv: Optional[Sequence[str]] = None,
               device: Optional[torch.device | str] = None) -> TrainResult:
     """Semi-supervised mean-teacher training on the GPU (``device`` for tests)."""
     return run_semi(semi_args(argv), device=device)
+
+
+def at_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The audio-tag trainer's arguments: the trainer's flags and
+    ``--nepochs`` (sets ``epochs`` when given) and ``--fix_backbone``
+    (parsed, without effect, as in the JAX package); ``--pooling`` defaults
+    to ``avg`` and ``--info`` to ``at_<pooling>_<dataname>``."""
+    parser = get_parser()
+    parser.add_argument("--nepochs", type=int, default=None, help="alias of --epochs")
+    parser.add_argument("--fix_backbone", action="store_true", default=False,
+                        help="accepted for the reference's command lines; no effect (the JAX "
+                             "package's trainer ignores it too): every parameter trains")
+    args = parser.parse_args(argv)
+    if args.nepochs is not None:
+        args.epochs = args.nepochs
+    if args.pooling is None:
+        args.pooling = "avg"
+    if args.info is None:
+        args.info = f"at_{args.pooling}_{args.dataname}"
+    return args
+
+
+def main_at(argv: Optional[Sequence[str]] = None,
+            device: Optional[torch.device | str] = None) -> AudioTagResult:
+    """Audio-tag backbone training on the GPU (``device`` for tests)."""
+    return run_audio_tag(at_args(argv), device=device)

@@ -18,7 +18,9 @@ Counterpart of the JAX package's ``data/dataset.py``:
   the card runs the current one;
 * :func:`batch_iterator`: all of the above, with the −1 rows that pad the
   last batch, and with a :class:`~.feature_bank.FeatureBank` in place of the
-  features.
+  features;
+* :func:`weak_batches`: the audio-tag trainer's (features, many-hot labels)
+  pairs, on a :class:`Prefetcher`'s thread.
 
 Batches stay on the host; the steps move them to the card.  With
 ``pin_memory`` the iterator pins them, so those copies run asynchronously.
@@ -429,5 +431,27 @@ def batch_iterator(
             else:
                 b = collate([dataset[i] for i in idxs], max_events, seconds, out_idxs, uflags)
             yield _pinned(b) if pin_memory else b
+
+    return iter(Prefetcher(gen))
+
+
+def collate_weak(samples: Sequence[Tuple[np.ndarray, np.ndarray]]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[(features [T, F], many-hot [C]), ...] -> (features [B, T, F, 1], labels
+    [B, C]), f32 on the CPU."""
+    x = torch.from_numpy(np.stack([s[0] for s in samples]).astype(np.float32)[..., None])
+    y = torch.from_numpy(np.stack([np.asarray(s[1], np.float32) for s in samples]))
+    return x, y
+
+
+def weak_batches(dataset, index_batches: Sequence[Sequence[int]],
+                 pin_memory: bool = False) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`collate_weak` of ``dataset`` at each index list, built on a
+    :class:`Prefetcher`'s thread (pinned with ``pin_memory``); a ragged last
+    list gives a smaller batch."""
+
+    def gen():
+        for idxs in index_batches:
+            x, y = collate_weak([dataset[i] for i in idxs])
+            yield (x.pin_memory(), y.pin_memory()) if pin_memory else (x, y)
 
     return iter(Prefetcher(gen))

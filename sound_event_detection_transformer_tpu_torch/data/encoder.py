@@ -161,10 +161,15 @@ class ManyHotEncoder:
         self.n_frames = n_frames
 
     def encode_weak(self, labels) -> np.ndarray:
+        """Labels -> [C] multi-hot: a comma-separated string ("empty" for
+        none), a list of labels, or a clip's strong rows ``(filename, onset,
+        offset, event_label)``, whose labels count."""
         y = np.zeros(len(self.labels), dtype=np.float32)
         if isinstance(labels, str):
             labels = [] if labels == "empty" else labels.split(",")
         for label in labels:
+            if isinstance(label, tuple):  # a strong row
+                label = label[3]
             if not missing_label(label):
                 y[self.labels.index(label)] = 1
         return y

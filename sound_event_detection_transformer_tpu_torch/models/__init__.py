@@ -1,4 +1,5 @@
-"""Model zoo of the port: SEDT, SP-SEDT, their criterion and post-processing."""
+"""Model zoo of the port: SEDT, SP-SEDT, their criterion and post-processing, and the
+audio-tag model."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,7 @@ import torch
 from ..config import SEDTConfig
 from .criterion import DenseTargets, build_weight_dict, empty_targets, set_criterion, total_loss
 from .postprocess import PostProcessResult, postprocess
-from .resnet import ResNetBackbone, num_backbone_channels
+from .resnet import AudioTagBackbone, ResNetBackbone, num_backbone_channels
 from .sedt import MLP, SEDT, SPSEDT
 from .transformer import Transformer, block_diagonal_bias
 
@@ -18,6 +19,7 @@ __all__ = [
     "SPSEDT",
     "MLP",
     "ResNetBackbone",
+    "AudioTagBackbone",
     "Transformer",
     "DenseTargets",
     "empty_targets",

@@ -1,12 +1,15 @@
-"""ResNet backbones with frozen batch norm.
+"""ResNet backbones with frozen batch norm, and the audio-tag model on one.
 
 Counterpart of the JAX package's ``models/resnet.py``.  The public layout is
 the JAX package's, input [B, T, F, 1] and output [B, T', F', C]; inside, the
 trunk runs NCHW.  Module and parameter names follow the flax tree
-(``conv0``, ``conv1``, ``bn1``, ``layer{stage}_{block}``, ``downsample_conv``)
-so that :func:`..weights.from_flax` maps one onto the other by name.
+(``conv0``, ``conv1``, ``bn1``, ``layer{stage}_{block}``, ``downsample_conv``;
+``backbone``, ``fc1``, ``fc2`` in :class:`AudioTagBackbone`) so that
+:func:`..weights.from_flax` maps one onto the other by name.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -145,3 +148,42 @@ class ResNetBackbone(nn.Module):
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x.permute(0, 2, 3, 1)  # [B, T', F', C]
+
+
+def _dense(d_in: int, d_out: int) -> nn.Linear:
+    """A linear layer with flax ``nn.Dense``'s init: LeCun normal (truncated
+    at two standard deviations) weights, zero bias."""
+    lin = nn.Linear(d_in, d_out)
+    std = math.sqrt(1.0 / d_in) / 0.87962566103423978  # truncation's variance loss undone
+    nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
+class AudioTagBackbone(nn.Module):
+    """Clip tagging: ResNet -> global pool over (T', F') -> fc1 (2048 -> 1000)
+    -> ReLU -> fc2 (1000 -> C).
+
+    [B, T, F, 1] -> [B, C]: the logits with ``logits_out``, else their
+    sigmoid.  ``pooling`` is ``"max"`` or ``"avg"``.  Its ``backbone``
+    initialises SP-SEDT's (``utils.checkpoint.load_audio_tag_backbone``).
+    The trainer takes the logits, for a logit-space BCE: a probability-space
+    BCE has no gradient where a cold backbone saturates the sigmoid.
+    """
+
+    def __init__(self, arch: str = "resnet50", dilation: bool = True, pooling: str = "max",
+                 num_classes: int = 10, logits_out: bool = False):
+        super().__init__()
+        if pooling not in ("max", "avg"):
+            raise ValueError(f"pooling must be 'max' or 'avg', not {pooling!r}")
+        self.backbone = ResNetBackbone(arch, dilation)
+        self.fc1 = _dense(num_backbone_channels(arch), 1000)
+        self.fc2 = _dense(1000, num_classes)
+        self.pooling = pooling
+        self.logits_out = logits_out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = self.backbone(x)  # [B, T', F', C]
+        pooled = feats.amax(dim=(1, 2)) if self.pooling == "max" else feats.mean(dim=(1, 2))
+        logits = self.fc2(F.relu(self.fc1(pooled)))
+        return logits if self.logits_out else torch.sigmoid(logits)

@@ -21,17 +21,20 @@ Counterpart of the JAX package's ``train_lib.py``:
 * ``run_spsedt``: SP-SEDT self-supervised pretraining (patch queries on
   unlabeled clips, ``--synthetic_smoke`` or DCASE's
   ``unlabel_in_domain.tsv`` and with ``--extra_data`` its 2018 task 5 TSV;
-  periodic and final checkpoints, resume), returning a
-  :class:`PretrainResult`;
+  the backbone from an audio-tag checkpoint with ``--pretrain``; periodic
+  and final checkpoints, resume), returning a :class:`PretrainResult`;
 * ``run_semi``: the mean-teacher semi-supervised trainer (strong, weak and
   unlabeled clips in every batch, the clean/noisy view pair, the EMA
   teacher's pseudo-labels, class-wise thresholds adapted each epoch, the
   teacher's or the student's evaluation, checkpoints, resume), returning a
-  :class:`TrainResult`.
+  :class:`TrainResult`;
+* ``run_audio_tag``: the audio-tag backbone trainer (clip tags by a
+  logit-space BCE on ``AudioTagBackbone``, clipped Adam, the validation's
+  clip macro F1 and a best checkpoint, which ``run_spsedt --pretrain``
+  reads), returning an :class:`AudioTagResult`.
 
-Several processes, and the audio-tag backbone init of ``run_spsedt
---pretrain``, raise ``NotImplementedError``, naming the ROADMAP item that
-brings them.  The audio-tag trainer waits for its slice.
+Several processes raise ``NotImplementedError``, naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -45,16 +48,24 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import config as C
 from .config import SEDTConfig
-from .data.dataset import ConcatDataset, DataLoadDf, MultiStreamBatchSampler, WavLoadDf, batch_iterator
-from .data.encoder import BoxEncoder
+from .data.dataset import (
+    ConcatDataset,
+    DataLoadDf,
+    MultiStreamBatchSampler,
+    WavLoadDf,
+    batch_iterator,
+    weak_batches,
+)
+from .data.encoder import BoxEncoder, ManyHotEncoder
 from .data.feature_bank import maybe_bank
 from .data.features import SedData, get_dfs
 from .data.scaler import Scaler
 from .data.synthetic import SyntheticDataset
-from .data.transforms import get_transforms
+from .data.transforms import get_frame_transforms, get_transforms
 from .data.tsv import unique
 from .engine import (
     adjust_threshold,
@@ -65,15 +76,17 @@ from .engine import (
     make_train_step,
 )
 from .metrics import PSDSEval, audio_tagging_results, compute_metrics, format_audio_tagging, psds_score
-from .models import build_model, resolve_device
+from .models import AudioTagBackbone, build_model, resolve_device
 from .models.torch_import import load_imagenet_backbone
 from .ops import augment
 from .ops.frontend import make_frontend_fn
 from .parallel.distribute import get_reduced_loss, get_world_size
+from .parallel.optim import ClippedAdam, make_audio_tag_optimizer
 from .utils.checkpoint import (
     EarlyStopping,
     SaveBest,
     back_up_code,
+    load_audio_tag_backbone,
     load_checkpoint,
     load_pretrain_into,
     save_checkpoint,
@@ -934,7 +947,10 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     ``info`` (``{"model", "epoch"}``, what ``run_supervised --pretrain``
     reads).
 
-    Runs on ``device`` (the GPU when None).  As in the JAX package it forces
+    Runs on ``device`` (the GPU when None).  With ``--pretrain`` the
+    backbone's parameters come from that audio-tag checkpoint under the
+    model dir (``load_audio_tag_backbone``, after the ImageNet init; the
+    FrozenBN statistics stay the model's).  As in the JAX package it forces
     ``self_sup``, no ``dec_at`` and ``lr_backbone`` 0 (the backbone's
     trainable leaves keep their gradients, which count in the clip, and
     their AdamW update is exactly zero).  One ``np.random.RandomState(seed)``
@@ -946,10 +962,6 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     """
     dev = resolve_device(device)
     _check_ported(args)
-    if args.pretrain:
-        raise NotImplementedError(
-            "SP-SEDT's --pretrain (the backbone from an audio-tag checkpoint) waits for the "
-            "audio-tag trainer (ROADMAP queue 1, item 6)")
     cfg = spsedt_config(args)
     if args.log:
         set_logger(cfg.train.info)
@@ -968,6 +980,11 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     model, weight_dict = init_model(cfg, dev)
     log.info(f"params: {sum(p.numel() for p in model.parameters())}")
     _imagenet_backbone_init(model, args, log)
+    if args.pretrain:  # the audio-tag backbone, after the ImageNet init
+        loaded = load_audio_tag_backbone(
+            model, load_checkpoint(osp.join(model_dir, args.pretrain))["model"])
+        log.info(f"initialized the backbone from the audio-tag checkpoint {args.pretrain}: "
+                 f"{len(loaded)} parameters")
     state = init_train_state(model, cfg, steps_per_epoch)
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     start_epoch = 0
@@ -1295,3 +1312,199 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     return TrainResult(metrics, epochs, final,
                        bank=train_bank is not None and valid_bank is not None,
                        model_dir=model_dir, data_timings=data.get("timings", {}))
+
+
+# ---------------------------------------------------------------------------
+# audio-tag backbone trainer
+# ---------------------------------------------------------------------------
+
+AT_CLIP_MAX_NORM = 0.1  # the JAX package's fixed clip; --clip_max_norm is not read
+
+
+class AudioTagResult(NamedTuple):
+    """What :func:`run_audio_tag` measured."""
+
+    f1: float  # the last epoch's clip macro F1 on validation
+    # per epoch: the loss mean, steps, seconds, the wait for batches, the
+    # validation's seconds and F1, the checkpoint seconds
+    epochs: List[Dict]
+    model_dir: str
+    checkpoint: str  # at_<pooling>_<dataset>, saved on every new best F1
+    # on disk: seconds of the feature pass and the scaler, clips extracted
+    data_timings: Dict
+
+
+def build_audio_tag_data(cfg: SEDTConfig, args) -> Dict:
+    """The audio-tag trainer's datasets, labels encoded as [C] multi-hot by
+    ``ManyHotEncoder.encode_weak``: ``--synthetic_smoke`` clips (clip labels
+    only; seed 0 for training, 16 clips of seed 1 for validation), or on
+    disk URBAN-SED's train and validate TSVs, or DCASE's weak and synthetic
+    (in that order) and validation TSVs, through ``SedData``, the frame
+    transforms and ``DataLoadDf``.  The scaler covers the training streams
+    and is saved at ``<exp_root>/<dataset>_at.json``, or loaded from there
+    when that file exists."""
+    classes = list(cfg.data.classes)
+    m = cfg.model
+    mhe = ManyHotEncoder(classes, n_frames=m.max_frames)
+    if args.synthetic_smoke:
+        mk = lambda n, seed: SyntheticDataset(n, classes, m.max_frames, m.n_mels, mhe.encode_weak,
+                                              max_events=2, seed=seed, weak_only=True)
+        valid = mk(16, 1)
+        return {"train": mk(args.smoke_clips, 0), "validation": valid,
+                "ref_valid": valid.ref_rows(), "encoder": mhe, "timings": {}}
+    root = osp.join(cfg.data.root, cfg.data.dataset_name)
+    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
+                 compute_log=False)
+    paths, audio_dirs = real_data_paths(cfg)
+    paths.pop("eval")
+    train_keys = ["train"] if "train" in paths else ["weak", "synthetic"]
+    t0 = time.perf_counter()
+    dfs = get_dfs(ds, paths, nb_files=cfg.data.nb_files, audio_dirs=audio_dirs)
+    timings = {"features_s": time.perf_counter() - t0, "extracted": ds.n_extracted,
+               "clips": sum(len(unique(r["filename"] for r in rows)) for rows in dfs.values())}
+    scaler = Scaler()
+    scaler_path = osp.join(cfg.data.exp_root, cfg.data.dataset_name + "_at.json")
+    t0 = time.perf_counter()
+    if osp.isfile(scaler_path):
+        scaler.load(scaler_path)
+    else:
+        pre = ConcatDataset([DataLoadDf(dfs[k], transform=get_frame_transforms(
+            m.max_frames, None, compute_log=True)) for k in train_keys])
+        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
+        os.makedirs(osp.dirname(scaler_path), exist_ok=True)
+        scaler.save(scaler_path)
+    timings["scaler_s"] = time.perf_counter() - t0
+    tf = get_frame_transforms(m.max_frames, scaler, compute_log=True)
+    cache = cfg.data.in_memory
+    train = ConcatDataset([DataLoadDf(dfs[k], mhe.encode_weak, tf, in_memory=cache,
+                                      cache_transformed=cache) for k in train_keys])
+    valid = DataLoadDf(dfs["validation"], mhe.encode_weak, tf, cache_transformed=cache)
+    return {"train": train, "validation": valid, "ref_valid": ref_rows(dfs["validation"]),
+            "encoder": mhe, "timings": timings}
+
+
+def init_audio_tag_model(cfg: SEDTConfig, pooling: str, device: torch.device) -> AudioTagBackbone:
+    """The audio-tag model to train (logits out): parameters drawn on the CPU
+    from ``cfg.train.seed``, then moved to ``device``."""
+    m = cfg.model
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.train.seed)
+        model = AudioTagBackbone(m.backbone, m.dilation, pooling, len(cfg.data.classes),
+                                 logits_out=True)
+    return model.to(device).eval()
+
+
+def make_audio_tag_step(model: AudioTagBackbone, optimizer: ClippedAdam):
+    """One audio-tag update on a batch already on the model's device
+    (features [B, T, F, 1], multi-hot labels [B, C]): the BCE on the logits,
+    averaged over B x C, its backward, the clip and Adam.  Returns the loss
+    on the device (not fetched).  It computes in f32, as the JAX package's
+    ``AudioTagBackbone`` does whatever ``--compute_dtype`` says."""
+
+    def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        loss = F.binary_cross_entropy_with_logits(model(x), y)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+@torch.no_grad()
+def audio_tag_rows(model: AudioTagBackbone, dataset, encoder: ManyHotEncoder, batch_size: int,
+                   device: torch.device) -> List[Tuple]:
+    """The tags of every clip of ``dataset`` (sigmoid > 0.5), in order at
+    ``batch_size`` with a ragged last batch, as metric rows ``(filename, 0,
+    0, label)``."""
+    n = len(dataset)
+    index_batches = [list(range(b, min(b + batch_size, n))) for b in range(0, n, batch_size)]
+    rows: List[Tuple] = []
+    for idxs, (x, _) in zip(index_batches, weak_batches(dataset, index_batches,
+                                                        pin_memory=device.type == "cuda")):
+        tags = (torch.sigmoid(model(x.to(device, non_blocking=True))) > 0.5).cpu().numpy()
+        for i, row in zip(idxs, tags):
+            rows.extend((dataset.filenames[i], 0.0, 0.0, lbl)
+                        for lbl in encoder.decode_weak(row.astype(int)))
+    return rows
+
+
+def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTagResult:
+    """The audio-tag backbone trainer, on ``--synthetic_smoke`` clips or the
+    dataset under ``--data_root`` (``build_audio_tag_data``), returning the
+    last validation's clip macro F1 and what the run measured.
+
+    Runs on ``device`` (the GPU when None).  The model is
+    ``AudioTagBackbone`` at ``--backbone``, ``--dilation`` and ``--pooling``
+    (avg when unset), from an ImageNet backbone when one is named or
+    present.  Each update: the BCE on the logits, then the clip of the
+    global norm at 0.1 over every parameter (nothing is frozen) and Adam at
+    ``--lr``, times 0.1 every ``--lr_drop`` epochs; f32, without autocast.
+    Per epoch: one permutation from a ``RandomState(seed)`` (the JAX
+    package's draw from numpy's seeded global stream), its full batches (the
+    ragged tail dropped) built on the prefetch thread, the loss summed on
+    the device and fetched once; a non-finite mean ends the run with
+    ``SystemExit(1)``; then the clip tags of the validation set and their
+    macro F1, and on a new best F1 the checkpoint ``{"model", "epoch"}`` at
+    ``<exp_root>/<dataset>/model/at_<pooling>_<dataset>``.
+    """
+    dev = resolve_device(device)
+    _check_ported(args)
+    cfg = args_to_config(args)
+    if args.log:
+        set_logger(cfg.train.info)
+    log = create_logger("train_at_torch")
+    log.info("Audio-tag backbone trainer (PyTorch)")
+    rng = np.random.RandomState(cfg.train.seed)
+    pooling = args.pooling or "avg"
+    epochs: List[Dict] = []
+
+    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
+    os.makedirs(model_dir, exist_ok=True)
+    data = build_audio_tag_data(cfg, args)
+    train_data, valid, mhe = data["train"], data["validation"], data["encoder"]
+    bs = cfg.data.batch_size
+    model = init_audio_tag_model(cfg, pooling, dev)
+    _imagenet_backbone_init(model, args, log)
+    log.info(f"params: {sum(p.numel() for p in model.parameters())}")
+    optimizer = make_audio_tag_optimizer(model, args.lr, args.lr_drop,
+                                         max(len(train_data) // bs, 1), AT_CLIP_MAX_NORM)
+    step = make_audio_tag_step(model, optimizer)
+    pin = dev.type == "cuda"
+    best = SaveBest("sup")
+    model_path = osp.join(model_dir, f"at_{pooling}_{cfg.data.dataset_name}")
+    f1 = 0.0
+    for epoch in range(args.epochs):
+        record: Dict = {"epoch": epoch}
+        epochs.append(record)
+        t0 = time.time()
+        order = rng.permutation(len(train_data))
+        index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
+        acc = DeviceMetricAccumulator()
+        timer = StepTimer()  # its data_time: the wait for each batch
+        for x, y in weak_batches(train_data, index_batches, pin_memory=pin):
+            timer.data_loaded()
+            acc.update({"loss": step(x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))})
+            timer.step_done()
+        means, n_steps = acc.means()  # the one fetch of the epoch
+        train_s = time.time() - t0
+        loss_mean = float(means.get("loss", float("nan")))
+        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
+                 f"{timer.summary()}")
+        record.update(loss=loss_mean, steps=n_steps, train_s=train_s,
+                      data_wait_s=timer.data_time.sum)
+        if n_steps and not math.isfinite(loss_mean):
+            log.info("Loss is not finite, stopping training")
+            raise SystemExit(1)
+
+        t0 = time.perf_counter()
+        rows = audio_tag_rows(model, valid, mhe, bs, dev)
+        f1 = audio_tagging_results(data["ref_valid"], rows)["avg"][0]
+        record.update(val_s=time.perf_counter() - t0, f1=f1)
+        log.info(f"AT clip macro F1: {f1:.4f}")
+        if best.apply(f1):
+            t0 = time.perf_counter()
+            save_checkpoint(model_path, {"model": model.state_dict(), "epoch": epoch})
+            record["checkpoint_s"] = time.perf_counter() - t0
+    log.info(f"best AT model saved at {model_path}")
+    return AudioTagResult(f1, epochs, model_dir=model_dir, checkpoint=model_path,
+                          data_timings=data["timings"])

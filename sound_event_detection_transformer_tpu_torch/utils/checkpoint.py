@@ -5,8 +5,8 @@ written under a temporary name and renamed, so a crash never leaves a
 half-written best model.  The format is the port's own (``torch.save`` of
 ``{"model": state_dict, ...}``); a checkpoint of the JAX package crosses
 through ``weights.from_flax``.  The SP-SEDT pretrain -> fine-tune weight
-surgery is :func:`load_pretrain_into`; the audio-tag backbone surgery waits
-for the audio-tag trainer (ROADMAP queue 1, item 6).
+surgery is :func:`load_pretrain_into`; the audio-tag -> SP-SEDT backbone
+surgery is :func:`load_audio_tag_backbone`.
 """
 from __future__ import annotations
 
@@ -61,6 +61,27 @@ def load_pretrain_into(model: torch.nn.Module,
         else:
             continue
         loaded.append(name)
+    return loaded
+
+
+@torch.no_grad()
+def load_audio_tag_backbone(model: torch.nn.Module,
+                            at_state: Mapping[str, torch.Tensor]) -> List[str]:
+    """Audio-tag checkpoint -> the ``backbone`` of ``model`` (SP-SEDT's), in
+    place; returns the names of the parameters loaded.
+
+    Every ``backbone.*`` parameter takes the checkpoint's value where the
+    checkpoint has its name at the same shape, and keeps its own otherwise.
+    Buffers are never copied: the FrozenBN statistics stay the model's, as
+    the JAX package merges ``params`` only.  The audio-tag head (``fc1``,
+    ``fc2``) has no counterpart and is left behind.
+    """
+    loaded = []
+    for name, p in model.named_parameters():
+        old = at_state.get(name)
+        if name.startswith("backbone.") and old is not None and tuple(old.shape) == tuple(p.shape):
+            p.copy_(old)
+            loaded.append(name)
     return loaded
 
 

@@ -22,7 +22,8 @@ launches K1 once (plain matching) or twice (fine-tune matching: the final
 layer, then the aux layers).  SP-SEDT: the patch crop on the card against
 the CPU to 1e-5; two tiny SP-SEDT steps on the card against the CPU to
 1e-3; one step launches K1 once and leaves the lr-0 backbone leaves bit for
-bit.
+bit.  The audio-tag step: two tiny updates on the card against the CPU, TF32
+off, to 1e-3, every parameter moved and no K1-K4 launched.
 """
 import dataclasses
 
@@ -404,3 +405,10 @@ def test_k1_launches_per_semi_step(cuda, fine_tune, launches):
     torch.cuda.synchronize()
     assert hungarian.lsap_lane.launches - before == launches
     assert torch.isfinite(metrics["loss"]).item() and counts.sum().item() > 0
+
+
+@pytest.mark.gpu
+def test_audio_tag_step_on_card_matches_cpu(cuda):
+    """``chip_smoke.small_audio_tag_step`` raises on a difference above 1e-3,
+    a parameter that did not move, a changed buffer or a K1-K4 launch."""
+    assert chip_smoke.small_audio_tag_step(cuda, chip_smoke.SEED) <= 1e-3

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from sound_event_detection_transformer_tpu_torch.cli import (
+    at_args,
+    main_at,
     main_semi,
     main_sedt,
     main_spsedt,
@@ -36,7 +38,12 @@ from sound_event_detection_transformer_tpu_torch.ops.attention import (
     FLASH_MIN_SEQ,
     scaled_dot_attention,
 )
-from sound_event_detection_transformer_tpu_torch.train_lib import run_semi, run_spsedt, run_supervised
+from sound_event_detection_transformer_tpu_torch.train_lib import (
+    run_audio_tag,
+    run_semi,
+    run_spsedt,
+    run_supervised,
+)
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,6 +53,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_
                                         ROOT / "bench_torch.py", ROOT / "train_sedt_torch.py",
                                         ROOT / "train_spsedt_torch.py",
                                         ROOT / "train_ss_sedt_torch.py",
+                                        ROOT / "train_at_torch.py",
                                         ROOT / "tools" / "time_jv_kernels.py"]
 
 
@@ -101,6 +109,7 @@ def test_port_runs_without_loading_jax():
         "from sound_event_detection_transformer_tpu_torch.parallel import optim\n"
         "from sound_event_detection_transformer_tpu_torch.utils import checkpoint\n"
         "import bench_torch, predict_torch, train_sedt_torch, train_spsedt_torch, train_ss_sedt_torch\n"
+        "import train_at_torch\n"
         "cfg = SEDTConfig.tiny_test()\n"
         "model, wd = build_model(cfg, device='cpu')\n"
         "m = cfg.model\n"
@@ -146,6 +155,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         run_semi(semi_args(argv))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_semi(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_audio_tag(at_args(argv))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_at(argv)
 
 
 def test_bare_cuda_means_the_current_card(monkeypatch):

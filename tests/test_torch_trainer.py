@@ -1,9 +1,9 @@
 """The port's supervised trainer, ``train_lib.run_supervised`` on
 ``--synthetic_smoke``, against the JAX package's on URBAN-SED-layout data
 (``tests/test_torch_trainer_dcase.py`` holds the DCASE layout), and the
-trainer's own paths: resume, ``--eval``, early stopping and the paths the
-port leaves out (several processes; the SP-SEDT pretrainer's ``--pretrain``).  The trainer on a dataset
-on disk is ``tests/test_torch_trainer_disk.py``.
+trainer's own paths: resume, ``--eval``, early stopping and the path the
+port leaves out (several processes, here and in the audio-tag trainer).  The
+trainer on a dataset on disk is ``tests/test_torch_trainer_disk.py``.
 
 Both trainers start from the same parameters: the test rebuilds the JAX
 trainer's initial ones (its ``init_train_state`` with ``PRNGKey(seed)``) and
@@ -220,23 +220,19 @@ def test_save_best_and_early_stopping_match_jax(seq):
     assert back.state_dict() == tstop.state_dict()
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--pretrain", "pre"], "item 6"),
-    ([], "item 7"),
-], ids=["pretrain", "processes"])
-def test_paths_left_out_raise(extra, item, tmp_path, monkeypatch):
-    """Several processes raise in the supervised trainer; ``--pretrain``,
-    which the supervised trainer now takes (``test_torch_trainer_spsedt``),
-    raises in the SP-SEDT pretrainer, where it means an audio-tag backbone."""
-    if item == "item 7":
-        monkeypatch.setattr(train_lib, "get_world_size", lambda: 2)
-        run = lambda: train_lib.run_supervised(
-            cli.sedt_args(tiny_argv("urbansed") + ["--exp_root", str(tmp_path / "exp")]),
-            device="cpu")
+@pytest.mark.parametrize("trainer", ["audio_tag", "processes"])
+def test_paths_left_out_raise(trainer, tmp_path, monkeypatch):
+    """Several processes raise in the supervised trainer and in the
+    audio-tag trainer, naming the multi-GPU item, before they write
+    anything."""
+    monkeypatch.setattr(train_lib, "get_world_size", lambda: 2)
+    exp = ["--exp_root", str(tmp_path / "exp")]
+    if trainer == "processes":
+        run = lambda: train_lib.run_supervised(cli.sedt_args(tiny_argv("urbansed") + exp),
+                                               device="cpu")
     else:
-        run = lambda: train_lib.run_spsedt(
-            cli.spsedt_args(["--synthetic_smoke", "--log", "--exp_root", str(tmp_path / "exp")]
-                            + extra), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+        run = lambda: train_lib.run_audio_tag(
+            cli.at_args(["--synthetic_smoke", "--log"] + exp), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
         run()
     assert not (tmp_path / "exp").exists()

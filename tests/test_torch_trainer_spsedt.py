@@ -23,8 +23,10 @@ package's, and the fine-tune that starts from its checkpoint.
 * The port's ``--resume`` from its epoch-0 checkpoint reproduces epoch 1
   bit for bit; ``run_supervised --pretrain`` carries the port's own
   checkpoint into a DCASE fine-tune by the surgery's rules; ``run_spsedt
-  --pretrain`` raises, naming the audio-tag trainer's ROADMAP item;
-  ``--extra_data`` adds ``dcase2018_task5.tsv``'s clips.
+  --pretrain`` takes the backbone's parameters from an audio-tag checkpoint
+  and keeps its own FrozenBN statistics (its parity with the JAX chain is
+  ``tests/test_torch_trainer_at.py``'s); ``--extra_data`` adds
+  ``dcase2018_task5.tsv``'s clips.
 """
 import contextlib
 import dataclasses
@@ -45,7 +47,7 @@ from sound_event_detection_transformer_tpu.models import build_model as jbuild
 from sound_event_detection_transformer_tpu.utils import meters as jmeters
 from sound_event_detection_transformer_tpu_torch import cli, train_lib
 from sound_event_detection_transformer_tpu_torch.data import wav_dataset
-from sound_event_detection_transformer_tpu_torch.models import build_model
+from sound_event_detection_transformer_tpu_torch.models import AudioTagBackbone, build_model
 from sound_event_detection_transformer_tpu_torch.utils import checkpoint
 from sound_event_detection_transformer_tpu_torch.weights import from_flax
 from test_torch_trainer import TOL, TOL_FIRST
@@ -243,11 +245,46 @@ def test_extra_data_adds_the_2018_task5_clips(disk, tmp_path):
     assert np.isfinite(result.epochs[0]["loss"])
 
 
-def test_spsedt_pretrain_raises_naming_the_audio_tag_item(tmp_path):
-    argv = ["--synthetic_smoke", "--exp_root", str(tmp_path / "exp"), "--log", "--pretrain", "at"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main_spsedt(argv, device="cpu")
-    assert not (tmp_path / "exp").exists()
+def test_spsedt_pretrain_loads_the_audio_tag_backbone(tmp_path):
+    """``--pretrain at`` after the ImageNet init: every backbone parameter
+    takes the audio-tag checkpoint's value (written here with other
+    FrozenBN statistics and a head), the FrozenBN buffers stay the model's,
+    nothing else of the model changes, and the run trains."""
+    torch.manual_seed(7)  # other parameters than the SP-SEDT's init
+    at = AudioTagBackbone("resnet18", num_classes=10)
+    with torch.no_grad():
+        for b in at.buffers():
+            b.add_(0.25)  # other statistics than the SP-SEDT's
+    model_dir = tmp_path / "exp" / "dcase" / "model"
+    checkpoint.save_checkpoint(str(model_dir / "at"), {"model": at.state_dict(), "epoch": 3})
+    seen = {}
+    real = train_lib.load_audio_tag_backbone
+
+    def spy(model, state):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loaded = real(model, state)
+        seen.update(before=before, after={k: v.clone() for k, v in model.state_dict().items()},
+                    loaded=loaded, buffers={n for n, _ in model.named_buffers()})
+        return loaded
+
+    argv = ["--dataname", "dcase"] + SMOKE + ["--exp_root", str(tmp_path / "exp"), "--epochs",
+                                              "1", "--pretrain", "at"]
+    with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(io.StringIO()):
+        mp.setattr(train_lib, "load_audio_tag_backbone", spy)
+        result = cli.main_spsedt(argv, device="cpu")
+    src = at.state_dict()
+    before, after = seen["before"], seen["after"]
+    backbone = {n for n in after if n.startswith("backbone.") and n not in seen["buffers"]}
+    assert set(seen["loaded"]) == backbone and len(backbone) == 22
+    for name, value in after.items():
+        if name in backbone:
+            assert torch.equal(value, src[name]) and not torch.equal(value, before[name]), name
+        else:
+            assert torch.equal(value, before[name]), name
+    for name in seen["buffers"]:
+        assert not torch.equal(after[name], src[name]), name
+    assert not any(n.startswith(("fc1", "fc2")) for n in after)
+    assert np.isfinite(result.epochs[0]["loss"])
 
 
 def test_default_info_and_the_dataset_check():
