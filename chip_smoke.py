@@ -44,9 +44,12 @@ nvcc for sm_90a, all started together), then:
    losses, the student and the teacher, the loss means, the adapted
    thresholds and F1 to 1e-3; two tiny audio-tag updates (resnet18, 128 x
    64, batch 4) and the tiny audio-tag trainer ``run_audio_tag`` (16
-   synthetic clips, 2 epochs) card against CPU: the losses, every
-   parameter, the loss means and F1 to 1e-3, every parameter moved (the
-   stem and ``layer1`` too), no K1-K4 launched;
+   synthetic clips, 2 epochs) card against CPU: the losses, the loss means
+   and F1 to 1e-3; each update's change of every parameter equal to optax's
+   clip and Adam from the device's own gradients to 1e-3 of the lr, and the
+   changes card against CPU to 1e-2 of the lr on nine entries in ten or
+   more; every parameter moved (the stem and ``layer1`` too), no K1-K4
+   launched;
 4. drives the flagship URBAN-SED evaluation step (10 s clips, batch 64)
    through ``build_model`` and ``make_eval_step``, with K1's launch count;
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
@@ -189,6 +192,7 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1737,38 +1741,101 @@ def check_audio_tag_leaves(model, params: dict, buffers: dict) -> None:
         assert torch.equal(b, buffers[n]), f"FrozenBN buffer {n} changed"
 
 
+def audio_tag_updates(args, cfg: SEDTConfig, dev: torch.device, x: torch.Tensor,
+                      y: torch.Tensor, steps: int) -> dict:
+    """``steps`` audio-tag updates on ``dev`` from the seeded init, K1-K4
+    asserted at no launch and the leaves checked: the losses, and the
+    parameters before the first update and after each, and the gradients
+    before each clip, all on the CPU."""
+    model, optimizer, step = audio_tag_step(args, cfg, dev)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    out = {"losses": [], "params": [{n: p.cpu() for n, p in params.items()}], "grads": []}
+    real_step = optimizer.step
+
+    def step_keeping_grads():
+        out["grads"].append({n: p.grad.cpu().clone() for n, p in model.named_parameters()})
+        real_step()
+
+    optimizer.step = step_keeping_grads
+    reset_launch_counts()
+    for _ in range(steps):
+        out["losses"].append(float(step(x.to(dev), y.to(dev))))
+        out["params"].append({n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+    counts = launch_counts()
+    assert not any(counts.values()), f"the audio-tag step launched a kernel: {counts}"
+    check_audio_tag_leaves(model, params, buffers)
+    return out
+
+
+def adam_deltas(grads: list, lr: float, max_norm: float) -> list:
+    """optax's ``chain(clip_by_global_norm(max_norm), adam(lr))`` from the
+    gradients of each update, in f64: each update's change of every leaf."""
+    m = v = None
+    deltas = []
+    for k, g in enumerate(grads, 1):
+        norm = math.sqrt(sum(float(t.double().square().sum()) for t in g.values()))
+        scale = min(1.0, max_norm / norm)
+        g = {n: t.double() * scale for n, t in g.items()}
+        m = {n: 0.1 * t + (0.9 * m[n] if m else 0) for n, t in g.items()}
+        v = {n: 0.001 * t.square() + (0.999 * v[n] if v else 0) for n, t in g.items()}
+        deltas.append({n: -lr * (m[n] / (1 - 0.9 ** k))
+                       / ((v[n] / (1 - 0.999 ** k)).sqrt() + 1e-8) for n in g})
+    return deltas
+
+
 def small_audio_tag_step(dev: torch.device, seed: int, steps: int = 2) -> float:
     """Two tiny audio-tag updates (``TINY_AT``: resnet18 on 128 x 64, batch 4,
-    f32) on the card against the CPU from the same weights, TF32 off: the
-    losses and every parameter after each update to 1e-3; on the card every
-    parameter moved, the buffers bit for bit and K1-K4 never launched.
-    Returns the largest difference."""
+    f32, lr 1e-4) on the card and on the CPU from the same weights, TF32 off.
+    An Adam update moves an entry by about the lr whatever its gradient, so
+    the parameters are held by their changes, in fractions of the lr:
+
+    * each side's own: each update's change of every entry equals optax's
+      clip and Adam from that side's gradients (``adam_deltas``) to 1e-3 of
+      the lr and two roundings of the parameter; a wrong sign, lr, bias
+      correction or skipped clip is off by more;
+    * card against CPU: the losses and the gradients' norms to 1e-3; the
+      change since the init, after each update, to 1e-2 of the lr on at
+      least nine entries in ten (the rest are those whose gradients the two
+      devices' summation orders move enough to matter, or flip in sign), and
+      to Adam's bound, 2 lr an update, on every entry.
+
+    On the card every parameter moved, the buffers bit for bit and K1-K4
+    never launched.  Returns the largest loss difference."""
     args = at_args(TINY_AT + [TRAIN_ROOT + "_at"])
     cfg = train_lib.args_to_config(args)
+    lr = args.lr
     x, y = at_batch(cfg, 4, seed)
-    runs = []  # the CPU's, then the card's
     with cudnn_tf32_off():
-        for d in (torch.device("cpu"), dev):
-            model, _, step = audio_tag_step(args, cfg, d)
-            params = {n: p.detach().clone() for n, p in model.named_parameters()}
-            buffers = {n: b.clone() for n, b in model.named_buffers()}
-            reset_launch_counts()
-            runs.append([])
-            for _ in range(steps):
-                loss = step(x.to(d), y.to(d))
-                runs[-1].append((loss.cpu(), {k: v.cpu().clone()
-                                              for k, v in model.state_dict().items()}))
-            counts = launch_counts()
-            assert not any(counts.values()), f"the audio-tag step launched a kernel: {counts}"
-            check_audio_tag_leaves(model, params, buffers)
+        ref, got = (audio_tag_updates(args, cfg, d, x, y, steps)
+                    for d in (torch.device("cpu"), dev))
     worst = 0.0
-    for (ref_l, ref_p), (got_l, got_p) in zip(*runs):
-        assert torch.isfinite(got_l).item() and torch.allclose(got_l, ref_l, rtol=1e-3,
-                                                               atol=1e-3), (got_l, ref_l)
-        worst = max(worst, float((got_l - ref_l).abs()))
-        for k, r in ref_p.items():
-            assert torch.allclose(got_p[k], r, rtol=1e-3, atol=1e-3), k
-            worst = max(worst, float((got_p[k] - r).abs().max()))
+    for r, g in zip(ref["losses"], got["losses"], strict=True):
+        assert math.isfinite(g) and abs(g - r) <= 1e-3 + 1e-3 * abs(r), (g, r)
+        worst = max(worst, abs(g - r))
+    ulp = torch.finfo(torch.float32).eps
+    for side in (ref, got):
+        for k, want in enumerate(adam_deltas(side["grads"], lr, train_lib.AT_CLIP_MAX_NORM)):
+            before, after = side["params"][k], side["params"][k + 1]
+            for n, d in want.items():
+                off = ((after[n] - before[n]).double() - d).abs()
+                tol = 1e-3 * lr + 2 * ulp * after[n].abs().double()
+                assert (off <= tol).all(), (k, n, float((off - tol).max()) / lr)
+    for k in range(steps):
+        norms = [torch.linalg.vector_norm(torch.stack([t.norm() for t in side["grads"][k].values()]))
+                 for side in (ref, got)]
+        assert torch.allclose(norms[1], norms[0], rtol=1e-3), (k, norms)
+    for k in range(1, steps + 1):
+        n_close = n_all = 0
+        for n, p0 in ref["params"][0].items():
+            assert torch.equal(got["params"][0][n], p0), n  # the same init
+            apart = (got["params"][k][n] - ref["params"][k][n]).abs() / lr
+            assert (apart <= 2 * k + 1e-3).all(), (k, n, float(apart.max()))
+            n_close += int((apart <= 1e-2).sum())
+            n_all += apart.numel()
+        assert n_close >= 0.9 * n_all, (k, n_close, n_all)
+        print(f"tiny audio-tag step, update {k}: {n_close / n_all:.4f} of the entries' changes "
+              f"agree card vs CPU to 1e-2 of the lr")
     return worst
 
 
@@ -2898,8 +2965,8 @@ def main() -> None:
     print(f"tiny f32 semi trainer, 2 epochs, card vs CPU: ok, max |loss mean, count, threshold "
           f"or F1 difference| {worst:.3g}")
     worst = small_audio_tag_step(dev, SEED)
-    print(f"tiny f32 audio-tag step, 2 steps, card vs CPU: ok, max |loss or parameter "
-          f"difference| {worst:.3g}")
+    print(f"tiny f32 audio-tag step, 2 steps, card vs CPU: ok, each update Adam's to 1e-3 of "
+          f"the lr, max |loss difference| {worst:.3g}")
     worst = small_audio_tag_trainer(dev)
     print(f"tiny f32 audio-tag trainer, 2 epochs, card vs CPU: ok, max |loss mean or F1 "
           f"difference| {worst:.3g}")

@@ -20,8 +20,8 @@ Counterpart of the JAX package's ``parallel/optim.py``:
   every k-th step, from the mean of the k gradients;
 * the mean-teacher EMA;
 * the audio-tag trainer's ``optax.chain(clip_by_global_norm, adam(staircase
-  exponential decay))`` (:class:`ClippedAdam`): every parameter, no freeze,
-  no weight decay.
+  exponential decay))`` (:func:`make_audio_tag_optimizer`): the same
+  optimizer over every parameter, no freeze, weight decay 0.
 """
 from __future__ import annotations
 
@@ -165,44 +165,15 @@ def make_optimizer(model: torch.nn.Module, tcfg: TrainConfig, steps_per_epoch: i
         tcfg.weight_decay, tcfg.clip_max_norm, tcfg.accumulating_gradient_steps)
 
 
-class ClippedAdam:
-    """Clip by global norm, then Adam over every parameter of ``params``,
-    its lr ``schedule(updates)`` (optax's count: 0 at the first update).
-
-    Call :meth:`step` after each backward: the gradients of all parameters
-    (each must have one) are clipped together, Adam updates (eps 1e-8, no
-    weight decay, no amsgrad: ``optax.adam``'s arithmetic) and the gradients
-    are zeroed.  Nothing is frozen, so every leaf counts in the norm.
-    """
-
-    def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Callable[[int], float],
-                 clip_max_norm: float):
-        self.params = list(params)
-        self.schedule = schedule
-        self.clip_max_norm = clip_max_norm
-        self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=0.0, amsgrad=False,
-                                     fused=self.params[0].is_cuda)
-        self.updates = 0
-
-    def step(self) -> torch.Tensor:
-        """One update; returns the gradients' global norm before the clip
-        (on the device, not fetched)."""
-        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip_max_norm)
-        self.adam.param_groups[0]["lr"] = self.schedule(self.updates)
-        self.adam.step()
-        self.adam.zero_grad(set_to_none=False)
-        self.updates += 1
-        return norm
-
-
 def make_audio_tag_optimizer(model: torch.nn.Module, lr: float, lr_drop: int,
-                             steps_per_epoch: int, clip_max_norm: float) -> ClippedAdam:
-    """The audio-tag trainer's optimizer: :class:`ClippedAdam` over all of
-    ``model``'s parameters at ``lr``, times 0.1 every ``lr_drop`` epochs of
-    ``steps_per_epoch`` updates (``optax.exponential_decay(lr, lr_drop *
-    steps_per_epoch, 0.1, staircase=True)``)."""
-    return ClippedAdam(model.parameters(), step_lr(lr, lr_drop, steps_per_epoch), clip_max_norm)
+                             steps_per_epoch: int, clip_max_norm: float) -> SEDTOptimizer:
+    """The audio-tag trainer's ``optax.chain(clip_by_global_norm,
+    adam(exponential_decay(lr, lr_drop * steps_per_epoch, 0.1,
+    staircase=True)))``: one group of every parameter of ``model``, nothing
+    frozen, so every leaf counts in the clip's norm; no weight decay, so the
+    AdamW is Adam."""
+    return SEDTOptimizer({"main": list(model.parameters()), "backbone": []},
+                         {"main": step_lr(lr, lr_drop, steps_per_epoch)}, 0.0, clip_max_norm)
 
 
 @torch.no_grad()

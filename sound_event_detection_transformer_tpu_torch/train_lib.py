@@ -81,7 +81,7 @@ from .models.torch_import import load_imagenet_backbone
 from .ops import augment
 from .ops.frontend import make_frontend_fn
 from .parallel.distribute import get_reduced_loss, get_world_size
-from .parallel.optim import ClippedAdam, make_audio_tag_optimizer
+from .parallel.optim import SEDTOptimizer, make_audio_tag_optimizer
 from .utils.checkpoint import (
     EarlyStopping,
     SaveBest,
@@ -1394,7 +1394,7 @@ def init_audio_tag_model(cfg: SEDTConfig, pooling: str, device: torch.device) ->
     return model.to(device).eval()
 
 
-def make_audio_tag_step(model: AudioTagBackbone, optimizer: ClippedAdam):
+def make_audio_tag_step(model: AudioTagBackbone, optimizer: SEDTOptimizer):
     """One audio-tag update on a batch already on the model's device
     (features [B, T, F, 1], multi-hot labels [B, C]): the BCE on the logits,
     averaged over B x C, its backward, the clip and Adam.  Returns the loss

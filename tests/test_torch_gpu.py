@@ -409,6 +409,8 @@ def test_k1_launches_per_semi_step(cuda, fine_tune, launches):
 
 @pytest.mark.gpu
 def test_audio_tag_step_on_card_matches_cpu(cuda):
-    """``chip_smoke.small_audio_tag_step`` raises on a difference above 1e-3,
-    a parameter that did not move, a changed buffer or a K1-K4 launch."""
+    """``chip_smoke.small_audio_tag_step`` raises on a loss difference above
+    1e-3, an update off optax's Adam by 1e-3 of the lr, changes that agree
+    card against CPU on fewer than nine entries in ten, a parameter that did
+    not move, a changed buffer or a K1-K4 launch."""
     assert chip_smoke.small_audio_tag_step(cuda, chip_smoke.SEED) <= 1e-3
