@@ -174,6 +174,22 @@ nvcc for sm_90a, all started together), then:
    on both ranks, rows equal to the dataset's, and timed; (c) the dryrun's
    five tiny legs over the same two ranks against one process, to the CPU
    tests' tolerances; a rank's failure fails the run;
+4j. drives the flagship train step under tensor parallel over the model
+   axis (``parallel/mesh.shard_model``: the attention heads and FFN hidden
+   units cut over the model ranks, ``parallel/tensor.py``'s all_reduces):
+   (a) at (1 x 2) ranks on this card over gloo (bench_torch's batch of 64,
+   bf16 autocast, dropout 0.1, 3 steps) against the same steps in one
+   process from the same seed: the first step's loss to 1e-3 relative, its
+   gradients (gathered whole) to 0.1 of their leaf's largest, the later
+   losses to 1e-2, the replicated parameters bit for bit on both ranks
+   after every step, K1 once a step on each rank at [192, 10, 20]; it
+   prints ms/step and the share of the step spent in the tensor-parallel
+   all_reduces (CUDA events around each); then again in f32 (batch 32, 2
+   steps, TF32 off) at the CPU tests' tolerances, Adam's first update on
+   the pinned entries included; (b) the dryrun's five tiny legs at (2 x 2) ranks on
+   this card over gloo against one process, to the CPU tests' tolerances
+   (TF32 off); (c) layouts the port cannot run (heads that do not divide,
+   a grid that does not fill the world) raise before any step;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -226,7 +242,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from bench_torch import flagship_config, synthetic_batch
 from sound_event_detection_transformer_tpu_torch import train_lib
 from sound_event_detection_transformer_tpu_torch.cli import at_args, sedt_args, semi_args, spsedt_args
-from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
+from sound_event_detection_transformer_tpu_torch.config import MeshConfig, SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data import wav_dataset
 from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator, collate, collate_weak
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder, ManyHotEncoder
@@ -267,7 +283,11 @@ from sound_event_detection_transformer_tpu_torch.ops import (
 from sound_event_detection_transformer_tpu_torch.ops.frontend import make_frontend_fn
 from sound_event_detection_transformer_tpu_torch.ops.patches import extract_patches_device
 from sound_event_detection_transformer_tpu_torch.parallel import dryrun
-from sound_event_detection_transformer_tpu_torch.parallel.distribute import init_distributed
+from sound_event_detection_transformer_tpu_torch.parallel.distribute import (
+    init_distributed,
+    layout_shape,
+)
+from sound_event_detection_transformer_tpu_torch.parallel.mesh import shard_model
 from sound_event_detection_transformer_tpu_torch.parallel.optim import (
     ema_update,
     make_audio_tag_optimizer,
@@ -2883,6 +2903,147 @@ def run_multiprocess_phase(dev: torch.device, card: str, clock_hz: float, latenc
             "err": k1_err}
 
 
+# ------------------------------------------------------- tensor parallel
+
+TP_ROOT = "build/chip_tensor_parallel"
+BATCH_TP = 64  # bench_torch's batch
+TP_STEPS = 3  # flagship steps of phase 4j (a), bf16
+TP_F32 = (32, 2)  # (a) in f32: batch, steps
+# (a) in bf16 against one process at dropout 0.1: the masks are the same
+# (drawn whole and sliced) and the row-split products are summed in f32,
+# but the cut GEMMs have other shapes, so bf16 roundings move: the first
+# step's loss is held to 1e-3 relative and its gradients to phase 4i (b)'s bf16
+# tolerance of 0.1 of the leaf's largest, the later steps to 1e-2.  Adam's
+# first update is about lr * sign(g), so in bf16 the share of entries whose
+# sign both gradients pin measures the roundings, not the step: it is
+# printed, and held in f32, where (a) runs again at the CPU tests'
+# tolerances (``dryrun.compare``'s defaults, TF32 off)
+TP_BF16_TOL = dict(loss_rtol=1e-3, later_rtol=1e-2, grad_tol=0.1, update_tol=math.inf,
+                   min_pinned=0.0)
+
+
+def layouts_that_raise(dev: torch.device) -> list:
+    """Phase 4j (c): the layouts the port refuses, each before any step:
+    the flagship's 8 heads over 16 model ranks (its 256-wide projections
+    divide, so JAX would cut inside a head), and grids that do not fill the
+    world.  Returns the messages; K1 must not have launched."""
+    reset_launch_counts()
+    raised = []
+    model, _ = build_model(flagship_config(), device=dev)
+    for attempt in (lambda: shard_model(model, 16, 0),
+                    lambda: layout_shape(MeshConfig(n_model=2), 3),
+                    lambda: layout_shape(MeshConfig(n_data=3, n_model=2), 4),
+                    lambda: dryrun.run_dryrun({}, 4, TP_ROOT, str(dev),
+                                              mesh=MeshConfig(n_model=3))):
+        try:
+            attempt()
+        except ValueError as e:
+            raised.append(str(e))
+        else:
+            raise AssertionError("a layout the port cannot run did not raise")
+    assert launch_counts()["K1"] == 0
+    assert all(getattr(m, "model_parts", 1) == 1 for m in model.modules())
+    return raised
+
+
+def tp_flagship_input(dev: torch.device, batch: int, steps: int, **model_kw) -> dict:
+    """The flagship step's leg input (dropout 0.1) at ``batch`` clips."""
+    cfg = flagship_config(batch)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
+    state = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))[0]
+    return dict(leg="step", device=str(dev), cfg=cfg, state=state.state_dict(),
+                batch=synthetic_batch(cfg, batch, "cpu"), streams=[batch], steps=steps,
+                seed=SEED, steps_per_epoch=100, time_collectives=True)
+
+
+def check_tp_ranks(got: list, steps: int, shape: tuple) -> None:
+    """Each rank of (a): the 1 x 2 layout, the projections cut, K1 once a
+    step at ``shape``, finite losses, the replicated parameters bit for bit
+    on both ranks after every step."""
+    for r in got:
+        assert r["layout"] == [1, 2] and r["n_cut"] > 0, (r["layout"], r["n_cut"])
+        assert r["k1"] == steps and tuple(r["k1_shape"]) == shape, (
+            f"K1 must launch once a step on each rank at {list(shape)}: {r['k1']} launches, "
+            f"last at {r['k1_shape']}")
+        assert all(np.isfinite(r["loss"]))
+        assert all(r["replicated_equal"]) and all(r["cut_equal"]), (
+            "the replicated parameters must be equal bit for bit on both ranks after every "
+            f"step: {r['replicated_equal']}")
+
+
+def run_tensor_parallel_phase(dev: torch.device, card: str, clock_hz: float, latency: dict,
+                              k1_err: float) -> dict:
+    """Phase 4j: the flagship train step under tensor parallel.  (a) (1 x 2)
+    ranks on this card over gloo against the same steps in one process, in
+    bf16 and in f32; (b) the dryrun's five tiny legs at (2 x 2); (c)
+    layouts that raise.  A rank's failure raises here."""
+    root = Path(TP_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    raised = layouts_that_raise(dev)
+    print(f"(c) layouts the port cannot run raise before any step, K1 never launched: "
+          + "; ".join(raised))
+
+    bf16 = tp_flagship_input(dev, BATCH_TP, TP_STEPS)
+    f32 = tp_flagship_input(dev, *TP_F32, compute_dtype="float32")
+    inputs = {"flagship_tp": bf16, "flagship_tp_f32": f32}
+    ones = {name: dryrun.leg_step(inp) for name, inp in inputs.items()}
+    path = root / "inputs.pt"
+    torch.save(inputs, path)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun.spawn(dryrun.run_legs, 2, (str(path), str(root / "out"), list(inputs),
+                                      MeshConfig(n_model=2)),
+                 str(root), device=str(dev), backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    res, shapes = {}, {}
+    for name, inp in inputs.items():
+        cfg, m = inp["cfg"], inp["cfg"].model
+        got = dryrun.load_results(str(root / "out"), name, 2)
+        shapes[name] = (m.dec_layers * len(inp["batch"].feats), m.num_queries, m.max_events)
+        check_tp_ranks(got, inp["steps"], shapes[name])
+        tol = TP_BF16_TOL if name == "flagship_tp" else {}
+        res[name] = dryrun.compare(ones[name], got, inp["state"], cfg.train.lr,
+                                   cfg.train.weight_decay, **tol)
+        r = res[name]
+        print(f"(a) flagship train step in {m.compute_dtype} at 1 x 2 (data x model) on {dev} "
+              f"(gloo), batch {len(inp['batch'].feats)} on both ranks, {m.nheads // 2} of "
+              f"{m.nheads} heads and {m.dim_feedforward // 2} of {m.dim_feedforward} hidden "
+              f"units a rank, dropout {m.dropout}, {inp['steps']} steps against one process: "
+              f"step 1's gradients within {r['grad_err']:.3g} of their leaf's largest (worst "
+              f"{r['grad_leaf']}), loss {r['loss_rel']:.3g} relative at step 1, later steps "
+              f"{r['later_rel']:.3g}; Adam's update after step 1 on the {r['pinned']:.1%} of "
+              f"entries both gradients pin within {r['update_err']:.3g} of the lr; the "
+              f"replicated parameters bit for bit on both ranks after every step; K1 "
+              f"{[x['k1'] for x in got]} launches at {list(shapes[name])} a rank ({card})")
+        assert r["ok"], f"(a) {name} at 1 x 2 against world 1 beyond {tol or 'the CPU tolerances'}: {r}"
+    got = dryrun.load_results(str(root / "out"), "flagship_tp", 2)
+    ms_tp = [float(np.mean(x["step_s"][1:])) * 1e3 for x in got]
+    coll_ms = [float(np.mean(x["collective_ms"][1:])) for x in got]
+    ms_one = float(np.mean(ones["flagship_tp"]["step_s"][1:])) * 1e3
+    print(f"(a) bf16 flagship step at 1 x 2: {ms_tp[0]:.3f} / {ms_tp[1]:.3f} ms/step on ranks "
+          f"0 / 1 (steps 2-{TP_STEPS}, host clock) against {ms_one:.3f} in one process; the "
+          f"tensor-parallel all_reduces {coll_ms[0]:.3f} / {coll_ms[1]:.3f} ms a step "
+          f"({coll_ms[0] / ms_tp[0]:.1%} / {coll_ms[1] / ms_tp[1]:.1%}; CUDA events around "
+          f"each); spawn to exit {spawn_s:.1f} s for both runs ({card})")
+
+    report = dryrun.run_dryrun(dryrun.tiny_inputs(str(dev), batch=8, steps=2), 4,
+                               str(root / "dryrun"), device=str(dev), backend="gloo",
+                               mesh=MeshConfig(n_model=2))
+    for name, r in report.items():
+        assert r["ok"] and r["layout"] == [2, 2], f"(b) dryrun leg {name} at 2 x 2 on {dev}: {r}"
+    print(f"(b) dryrun legs at 2 x 2 (data x model) on {dev} (gloo) against one process: "
+          + "; ".join(f"{name} ok (gradients {r['grad_err']:.2g}, loss {r['loss_rel']:.2g}, "
+                      f"update {r['update_err']:.2g} lr, K1 {r['k1']})"
+                      for name, r in report.items()) + f" ({card})")
+    shape = shapes["flagship_tp"]
+    cost = seeded_k1_cost(shape, "big", dev)
+    timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5, latency,
+                     clock_hz)
+    return {"shape": list(shape), "launches": [x["k1"] for x in got], "timing": timing,
+            "err": k1_err}
+
+
 # --------------------------------------------------------------- predict
 
 
@@ -3229,6 +3390,10 @@ def main() -> None:
     multi = run_multiprocess_phase(dev, card, clock_hz, latency, errs["K1"])
     torch.cuda.empty_cache()
 
+    # 4j. the train step under tensor parallel: 1 x 2 and the dryrun at 2 x 2 (gloo)
+    tp = run_tensor_parallel_phase(dev, card, clock_hz, latency, errs["K1"])
+    torch.cuda.empty_cache()
+
     # 5. long-clip predict at the flagship's width
     long_cfg = long_config(cfg, LONG_SECONDS, int(LONG_SECONDS * 50), num_queries=40,
                            max_events=60)
@@ -3332,6 +3497,11 @@ def main() -> None:
          "shape": multi["shape"], "launches": sum(multi["launches"]),
          "launches_per_rank": multi["launches"], "variant": "warp, 1 column a lane",
          "max_abs_err": errs["K1"], **multi["timing"]},
+        {"name": "K1 lsap_lane train step, 1 x 2 tensor parallel", "source": hungarian_src,
+         "replaces": PALLAS_DIR + "hungarian.py:302", "tpu_kernel": "_jv_lane_kernel",
+         "shape": tp["shape"], "launches": sum(tp["launches"]),
+         "launches_per_rank": tp["launches"], "variant": "warp, 1 column a lane",
+         "max_abs_err": errs["K1"], **tp["timing"]},
         {"name": "K2 lsap_block", "source": hungarian_src,
          "replaces": PALLAS_DIR + "hungarian.py:197", "tpu_kernel": "_jv_packed_kernel",
          "shape": shapes["K2"], "launches": launches["K2"],

@@ -2,7 +2,8 @@
 
 The port's own copy of the JAX package's ``config.py``: features, model, loss,
 data, augment and train dataclasses (everything ``train_lib.args_to_config``
-fills; the device-mesh layout waits for the multi-GPU slice), the
+fills), the process layout ``MeshConfig`` (``n_data`` x ``n_model`` ranks, which
+``parallel.distribute.init_layout`` turns into process groups), the
 ``urbansed_supervised`` / ``tiny_test`` presets, ``DCASE_CLASS_PRIOR`` and
 ``load_classes_from_tsv``.  Field names, defaults and
 presets are the JAX package's, so a configuration means the same thing on
@@ -205,6 +206,19 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (data x model) layout of the ranks: batches split over ``data``,
+    the transformer's attention heads and FFN hidden units over ``model``
+    (``parallel.mesh.TP_RULES``).  Rank r sits at data index r // n_model,
+    model index r % n_model, as ``make_mesh`` lays devices out row-major."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    n_data: int = -1  # -1: every rank left over on the data axis
+    n_model: int = 1
+
+
+@dataclass(frozen=True)
 class SEDTConfig:
     features: FeatureConfig = field(default_factory=FeatureConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -212,6 +226,7 @@ class SEDTConfig:
     data: DataConfig = field(default_factory=DataConfig)
     augment: AugmentConfig = field(default_factory=AugmentConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "SEDTConfig":
         return dataclasses.replace(self, **kw)

@@ -37,7 +37,7 @@ import torch
 
 from ..engine import Batch
 from ..models.criterion import DenseTargets
-from ..parallel.distribute import get_rank, get_world_size
+from ..parallel.distribute import data_rank, data_world
 from ..parallel.mesh import local_sizes, share
 from .encoder import to_dense_targets
 from .features import read_audio
@@ -406,7 +406,7 @@ def batch_iterator(
     gathers the features on the card (``bank.gather(batch.indexes)``).
     ``pin_memory`` pins every batch for asynchronous copies to the card.
 
-    ``host_slice``: ``(rank, world)``, by default the process group's.  Every
+    ``host_slice``: ``(rank, world)``, by default the data axis'.  Every
     rank draws the same global batches and keeps its share
     (:func:`..parallel.mesh.share`): 1/world of each stream of
     ``stream_sizes`` (the sampler's per-stream batch sizes; one stream when
@@ -418,7 +418,7 @@ def batch_iterator(
     read at every row of the global batch, in order, on every rank, so that
     the ranks' streams stay those of one process.
     """
-    rank, world = host_slice if host_slice is not None else (get_rank(), get_world_size())
+    rank, world = host_slice if host_slice is not None else (data_rank(), data_world())
     if isinstance(sampler_or_batchsize, int):
         if stream_sizes is not None:
             raise ValueError("in order, a batch has one stream")
@@ -478,9 +478,9 @@ def weak_batches(dataset, index_batches: Sequence[Sequence[int]], pin_memory: bo
     """:func:`collate_weak` of ``dataset`` at each index list, built on a
     :class:`Prefetcher`'s thread (pinned with ``pin_memory``); a ragged last
     list gives a smaller batch.  ``host_slice`` (``(rank, world)``, by
-    default the process group's): each list is a global batch of one stream,
+    default the data axis'): each list is a global batch of one stream,
     and the rank takes its contiguous chunk."""
-    rank, world = host_slice if host_slice is not None else (get_rank(), get_world_size())
+    rank, world = host_slice if host_slice is not None else (data_rank(), data_world())
 
     def gen():
         for idxs in index_batches:

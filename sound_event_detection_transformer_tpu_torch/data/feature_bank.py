@@ -8,14 +8,16 @@ never depend on the labels or on a random draw: the augmentations run on the
 device, inside the step.
 
 Two layouts: replicated (one process holds every clip, the gather is local)
-and sharded over the process group (``shard=True``: each rank holds a
+and sharded over the data axis (``shard=True``: each data rank holds a
 contiguous 1/N of the clips, the row count padded with zero rows to a
 multiple of N, which no index reaches).  A sharded gather takes the GLOBAL
 batch's indices on every rank: each rank takes the rows it holds (zeros for
 the others), one ``all_reduce`` sums them, and each rank keeps its
 contiguous chunk of the sum, which is its share of the batch.  That is the
 JAX package's psum-then-scatter with the collective that both NCCL and gloo
-offer on CUDA tensors.
+offer on CUDA tensors.  The collectives run over the data group: the ranks
+of one model group hold the same shard (JAX shards the bank over ``data``
+only), and a sum over the world would count every row ``n_model`` times.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.distribute import comm_device, get_rank, get_world_size
+from ..parallel.distribute import comm_device, data_group, data_rank, data_world
 
 BANK_BUDGET_BYTES = 8e9  # the largest bank (or bank share) the trainer puts on a card
 
@@ -39,7 +41,7 @@ class FeatureBank:
 
     def __init__(self, dataset, device: torch.device, log=None, shard: bool = False):
         self.sharded = bool(shard)
-        self.rank, self.world = (get_rank(), get_world_size()) if shard else (0, 1)
+        self.rank, self.world = (data_rank(), data_world()) if shard else (0, 1)
         n = len(dataset)
         self.shard_size = -(-n // self.world)
         lo = self.rank * self.shard_size
@@ -60,7 +62,7 @@ class FeatureBank:
         self.device = self._bank.device
         if self.world > 1:  # one all_reduce merges the ranks' frame counts
             merged = torch.from_numpy(raw).to(comm_device())
-            dist.all_reduce(merged)
+            dist.all_reduce(merged, group=data_group())
             raw = merged.cpu().numpy()
         self.raw_frames = {i: int(t) for i, t in enumerate(raw)}
         if log is not None:
@@ -89,7 +91,7 @@ class FeatureBank:
         rows = self._bank.index_select(0, local.clamp(0, self.shard_size - 1))
         rows = torch.where(held.view(-1, *([1] * (rows.dim() - 1))), rows, 0.0)
         if self.world > 1:
-            dist.all_reduce(rows)
+            dist.all_reduce(rows, group=data_group())
         per = idx.shape[0] // self.world
         return rows[self.rank * per:(self.rank + 1) * per]
 
@@ -102,7 +104,7 @@ def maybe_bank(args, dataset, cfg, device: torch.device, log=None) -> Optional[F
     None, and batches carry their features from the host."""
     if not getattr(args, "device_data", True):
         return None
-    world = get_world_size()
+    world = data_world()
     est = len(dataset) * cfg.model.max_frames * cfg.model.n_mels * 4
     if est <= BANK_BUDGET_BYTES and world == 1 and not getattr(args, "shard_bank", False):
         return FeatureBank(dataset, device, log=log)

@@ -25,7 +25,13 @@ over the ranks, so each rank's loss is its partial of the global loss; the
 backward runs on partial x N, so that DDP's mean of the ranks' gradients is
 the gradient of the global loss, and the clip sees the global norm: the
 step of the JAX package's data-parallel mesh.  The metrics come back as
-partials (their sum over the ranks is the global value).
+partials (their sum over the ranks is the global value).  Under a (data x
+model) layout (``parallel.distribute.init_layout``) the ranks of one model
+group hold one batch shard and the model cut over them
+(``parallel.mesh.shard_model``): N above is the data axis' rank count, the
+denominators are summed over the data group, DDP runs over the data group,
+and each model rank solves its shard's matching problems, as GSPMD
+replicates the matcher over ``model``.
 
 The JAX package's frozen-leaf mask (``_frozen_param_mask`` /
 ``_swap_in_frozen``) becomes ``requires_grad=False`` on the frozen
@@ -49,8 +55,9 @@ from .models.criterion import DenseTargets, joint_match
 from .ops import augment
 from .ops.matcher import MatchResult
 from .ops.patches import extract_patches_device
-from .parallel.distribute import all_reduce_sum, get_world_size
+from .parallel.distribute import all_reduce_sum, data_world
 from .parallel.optim import SEDTOptimizer, ema_update, make_optimizer
+from .parallel.tensor import same_bits_on_every_rank
 
 
 class Batch(NamedTuple):
@@ -204,7 +211,7 @@ def make_train_step(
     param = next(model.parameters())
     if param.device != dev:
         raise ValueError(f"model is on {param.device}, train step on {dev}")
-    world = get_world_size()
+    world = data_world()
     loss_fn = make_loss_fn(model, weight_dict, cfg, fine_tune, normalize, fl, world)
 
     def step(batch: Batch, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
@@ -212,7 +219,7 @@ def make_train_step(
         feats, pad_mask = to(batch.feats), to(batch.pad_mask)
         targets = DenseTargets(*(to(t) for t in batch.targets))
         strong, weak = to(batch.strong), to(batch.weak)
-        with torch.enable_grad():
+        with torch.enable_grad(), same_bits_on_every_rank():
             if frontend_fn is not None:
                 with torch.no_grad():
                     feats = frontend_fn(feats)
@@ -374,7 +381,7 @@ def make_semi_train_step(
     the parameters are the same on every rank.
     """
     dev = resolve_device(device)
-    world = get_world_size()
+    world = data_world()
     red = _criterion_reduce(world)
     a = cfg.augment
     me = cfg.model.max_events
@@ -418,7 +425,7 @@ def make_semi_train_step(
                 feats_l, student_in, targets_l, pseudo, generator,
                 mix_up_ratio=a.mix_up_ratio, alpha=1.0, max_events=me)
 
-        with torch.enable_grad():
+        with torch.enable_grad(), same_bits_on_every_rank():
             n_l = feats_l.shape[0]
             both = model(torch.cat([feats_l, student_in]), torch.cat([pad_lab, pad_unl]),
                          deterministic=False, generator=generator)

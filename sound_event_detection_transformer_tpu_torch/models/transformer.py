@@ -7,6 +7,19 @@ outputs.  Every LayerNorm uses eps 1e-6, flax's default.  Dropout falls
 where the JAX package's does (the attention probabilities, the FFN hidden,
 every residual branch) unless ``deterministic``; its masks come from the
 ``generator`` handed down with the inputs.
+
+Tensor parallel over the model axis (``parallel.mesh.shard_model`` sets
+``model_parts`` N and ``model_index`` m on each attention and FFN and cuts
+their parameters): model rank m holds heads [m H / N, (m + 1) H / N) of
+q/k/v and hidden units [m F / N, (m + 1) F / N) of the FFN's first linear
+(column shards), and the matching input columns of ``out_proj`` and the
+second linear (row shards).  A column-split projection's input passes
+through ``parallel.tensor.copy_to_model``; a row-split projection's partial
+product through ``reduce_from_model``, after which its bias is added once.
+Dropout on the heads' probabilities and on the hidden units draws the keep
+mask of the whole tensor and takes the rank's slice, so the ranks of a
+model group, whose generators run in lockstep, tile one mask.  At N = 1
+every path, name and number is the unsplit module's.
 """
 from __future__ import annotations
 
@@ -18,6 +31,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import scaled_dot_attention
 from ..ops.dropout import dropout
+from ..parallel.tensor import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-6
 
@@ -29,13 +43,29 @@ def _linear(d_in: int, d_out: int) -> nn.Linear:
     return lin
 
 
+def _row_split(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A row-split projection, as the unsplit one computes it: the operands
+    rounded to the compute type (bf16 under autocast), the partial product
+    taken in f32, summed over the model group in f32, the bias (rounded
+    alike) added once, the sum rounded once.  Rounding each rank's partial
+    to bf16 before the sum would move every output by a rounding that the
+    unsplit projection does not make."""
+    dev = x.device.type
+    dt = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+    with torch.autocast(dev, enabled=False):
+        part = F.linear(x.to(dt).float(), lin.weight.to(dt).float())
+        return (reduce_from_model(part) + lin.bias.to(dt).float()).to(dt)
+
+
 class MultiHeadAttention(nn.Module):
-    """q/k/v/out projections around :func:`scaled_dot_attention`."""
+    """q/k/v/out projections around :func:`scaled_dot_attention`; this
+    rank's ``nhead / model_parts`` heads under tensor parallel."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
         self.dropout = dropout
+        self.model_parts, self.model_index = 1, 0
         self.q_proj = _linear(d_model, d_model)
         self.k_proj = _linear(d_model, d_model)
         self.v_proj = _linear(d_model, d_model)
@@ -46,28 +76,42 @@ class MultiHeadAttention(nn.Module):
         b, sq, d = q_in.shape
         sk = k_in.shape[1]
         hd = d // self.nhead
-        q = self.q_proj(q_in).reshape(b, sq, self.nhead, hd).transpose(1, 2)
-        k = self.k_proj(k_in).reshape(b, sk, self.nhead, hd).transpose(1, 2)
-        v = self.v_proj(v_in).reshape(b, sk, self.nhead, hd).transpose(1, 2)
+        heads, split = self.nhead // self.model_parts, self.model_parts > 1
+        if split:  # one copy per distinct input (self-attention's q and k are one)
+            copies = {}
+            for t in (q_in, k_in, v_in):
+                if id(t) not in copies:
+                    copies[id(t)] = copy_to_model(t)
+            q_in, k_in, v_in = (copies[id(t)] for t in (q_in, k_in, v_in))
+        q = self.q_proj(q_in).reshape(b, sq, heads, hd).transpose(1, 2)
+        k = self.k_proj(k_in).reshape(b, sk, heads, hd).transpose(1, 2)
+        v = self.v_proj(v_in).reshape(b, sk, heads, hd).transpose(1, 2)
         if deterministic or self.dropout == 0.0:  # the eval and predict paths' call
             out = scaled_dot_attention(q, k, v, bias)
         else:
-            out = scaled_dot_attention(q, k, v, bias, dropout_rate=self.dropout,
-                                       generator=generator)
-        return self.out_proj(out.transpose(1, 2).reshape(b, sq, d))
+            out = scaled_dot_attention(
+                q, k, v, bias, dropout_rate=self.dropout, generator=generator,
+                dropout_shard=(1, self.model_index, self.model_parts) if split else None)
+        out = out.transpose(1, 2).reshape(b, sq, heads * hd)
+        return _row_split(self.out_proj, out) if split else self.out_proj(out)
 
 
 class FFN(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.model_parts, self.model_index = 1, 0
         self.linear1 = _linear(d_model, dim_feedforward)
         self.linear2 = _linear(dim_feedforward, d_model)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = dropout(F.relu(self.linear1(x)), self.dropout, generator, deterministic)
-        return self.linear2(h)
+        if self.model_parts == 1:
+            h = dropout(F.relu(self.linear1(x)), self.dropout, generator, deterministic)
+            return self.linear2(h)
+        h = dropout(F.relu(self.linear1(copy_to_model(x))), self.dropout, generator,
+                    deterministic, shard=(-1, self.model_index, self.model_parts))
+        return _row_split(self.linear2, h)
 
 
 class EncoderLayer(nn.Module):

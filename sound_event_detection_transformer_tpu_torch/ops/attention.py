@@ -9,7 +9,7 @@ they are cast to v's type.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import math
 
@@ -37,13 +37,16 @@ def scaled_dot_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     use_flash: Optional[bool] = None,
+    dropout_shard: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """Multi-head attention core; returns [B, H, Sq, D] in v's dtype.
 
     ``use_flash=None`` picks kernel K4 for ``Sk >= FLASH_MIN_SEQ`` without
     dropout on CUDA tensors.  ``use_flash=True`` on CPU tensors runs the
     kernel's plain blockwise version.  ``dropout_rate > 0`` drops
-    probabilities with masks drawn from ``generator``.
+    probabilities with masks drawn from ``generator``; ``dropout_shard``
+    (:func:`.dropout.dropout`'s ``shard``) when the heads are a
+    tensor-parallel rank's slice of all.
     """
     if use_flash is None:
         use_flash = k.shape[-2] >= FLASH_MIN_SEQ and dropout_rate == 0.0 and k.is_cuda
@@ -54,5 +57,6 @@ def scaled_dot_attention(
     logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(q.shape[-1]))
     if bias is not None:
         logits = logits + bias
-    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate, generator, False)
+    probs = dropout(torch.softmax(logits, dim=-1), dropout_rate, generator, False,
+                    shard=dropout_shard)
     return torch.matmul(probs.to(v.dtype), v)

@@ -1,7 +1,9 @@
 """Training-side parallel utilities of the port: the optimizer (masked
 two-group AdamW with its clip, schedules and accumulation) and the EMA; the
-process group and its collectives (``distribute``), each rank's share of a
-batch and the DDP wrapper (``mesh``), and the multi-process dryrun's legs
+process group, its (data x model) layout and its collectives
+(``distribute``), each data rank's share of a batch, the tensor-parallel cut
+of the model and the DDP wrapper (``mesh``), the tensor-parallel
+all_reduces (``tensor``), and the multi-process dryrun's legs
 (``dryrun``)."""
 from .optim import (
     SEDTOptimizer,

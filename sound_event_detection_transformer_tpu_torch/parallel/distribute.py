@@ -1,24 +1,41 @@
-"""The process group, rank helpers and the collectives the trainers use.
+"""The process group, its (data x model) layout, rank helpers and the
+collectives the trainers use.
 
-Counterpart of the JAX package's ``parallel/distribute.py``.  A run of N
-processes is a ``torch.distributed`` group: NCCL when each rank has a card
-of its own, gloo on the CPU and for several ranks on one card (NCCL refuses
-two ranks on one device).  Without a group the world has one member and
-every collective here is the identity.
+Counterpart of the JAX package's ``parallel/distribute.py`` and of the
+device grid of its ``make_mesh``.  A run of N processes is a
+``torch.distributed`` group: NCCL when each rank has a card of its own, gloo
+on the CPU and for several ranks on one card (NCCL refuses two ranks on one
+device).  Without a group the world has one member and every collective
+here is the identity.
 
-Every helper is one collective, so all ranks must call it in the same
-order.  Small host values travel as one tensor on :func:`comm_device` (the
-current card under NCCL, the CPU under gloo).
+The layout (:func:`init_layout`, a :class:`~..config.MeshConfig`) cuts the
+world into ``n_data`` x ``n_model`` ranks, rank ``d * n_model + m`` at data
+index d and model index m, and makes two families of groups: the model
+group of a data index (its ``n_model`` consecutive ranks, which hold one
+batch shard and split the transformer's heads and hidden units) and the
+data group of a model index (its ``n_data`` ranks, one per batch shard).
+Without a layout the data axis is the whole world and the model axis has
+one rank.  A batch shard is held by every rank of its model group, so the
+collectives over batch shards (the criterion's denominators, metrics, the
+bank, gathers of rows) run over the data group: over the world they would
+count every shard ``n_model`` times.
+
+Every helper is one collective, so all ranks of its group must call it in
+the same order.  Small host values travel as one tensor on
+:func:`comm_device` (the current card under NCCL, the CPU under gloo).
 """
 from __future__ import annotations
 
 import datetime
 import os
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..config import MeshConfig
 
 COLLECTIVE_TIMEOUT_S = 180  # a mismatched collective fails the run after this
 
@@ -33,6 +50,98 @@ def get_rank() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+@dataclass(frozen=True)
+class Layout:
+    """This rank's place in the (data x model) grid and its two groups."""
+
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+    data_group: Any  # the ranks of this model index; None: the whole world
+    model_group: Any  # the ranks of this data index; None: this rank alone
+
+
+_layout: Optional[Layout] = None
+
+
+def layout_shape(cfg: MeshConfig, world: int) -> tuple:
+    """(n_data, n_model) of ``cfg`` over ``world`` ranks; raises unless the
+    two fill the world exactly (``make_mesh`` may leave devices over, a
+    process group may not)."""
+    n_model = max(1, cfg.n_model)
+    n_data = cfg.n_data if cfg.n_data > 0 else world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"a layout of {n_data} x {n_model} (data x model) ranks does not fill "
+                         f"a world of {world}")
+    return n_data, n_model
+
+
+def init_layout(cfg: MeshConfig = MeshConfig()) -> Layout:
+    """Lay the current world out as ``cfg`` says and make its groups (a
+    collective: every rank calls it, in the same order as its other group
+    calls).  ``n_model`` 1 keeps the world as the data group, so the
+    collectives run exactly as without a layout."""
+    global _layout
+    world, rank = get_world_size(), get_rank()
+    n_data, n_model = layout_shape(cfg, world)
+    data_group = model_group = None
+    if n_model > 1:
+        for d in range(n_data):  # every rank makes every group, in one order
+            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            if d == rank // n_model:
+                model_group = g
+        for m in range(n_model):
+            g = dist.new_group([d * n_model + m for d in range(n_data)])
+            if m == rank % n_model:
+                data_group = g
+    _layout = Layout(n_data, n_model, rank // n_model, rank % n_model, data_group, model_group)
+    return _layout
+
+
+def clear_layout() -> None:
+    """Forget the layout (its groups end with the process group)."""
+    global _layout
+    _layout = None
+
+
+def data_world() -> int:
+    """Ranks on the data axis: the number of batch shards."""
+    return _layout.n_data if _layout is not None else get_world_size()
+
+
+def data_rank() -> int:
+    """This rank's batch shard."""
+    return _layout.data_rank if _layout is not None else get_rank()
+
+
+def model_world() -> int:
+    """Ranks on the model axis: the parts each sharded projection is cut in."""
+    return _layout.n_model if _layout is not None else 1
+
+
+def model_rank() -> int:
+    """This rank's part of each sharded projection."""
+    return _layout.model_rank if _layout is not None else 0
+
+
+def data_group():
+    """The group of the ranks that hold this rank's model part, one per batch
+    shard (None, torch's default group, when that is the whole world)."""
+    return _layout.data_group if _layout is not None else None
+
+
+def model_group():
+    """The group of the ranks that hold this rank's batch shard (None when
+    this rank holds its shard alone)."""
+    return _layout.model_group if _layout is not None else None
+
+
+def _group_src(group, src: int) -> int:
+    """The global rank of ``group``'s member ``src``."""
+    return src if group is None else dist.get_global_rank(group, src)
 
 
 def local_rank() -> int:
@@ -88,60 +197,84 @@ def comm_device() -> torch.device:
 
 
 def rank_seed(seed: int, rank: Optional[int] = None) -> int:
-    """The seed of a rank's step generator: ``seed`` on rank 0 (so world 1
-    draws what a run without a group draws), a hash of (seed, rank) on the
-    others, so that their dropout masks and draws differ."""
-    rank = get_rank() if rank is None else rank
+    """The seed of a rank's step generator: ``seed`` on data rank 0 (so world
+    1 draws what a run without a group draws), a hash of (seed, data rank) on
+    the others, so that their dropout masks and draws differ.  The ranks of
+    one model group share a seed: their generators stay in lockstep, so the
+    replicated activations see one dropout mask and the sharded ones the
+    slices of one global mask."""
+    rank = data_rank() if rank is None else rank
     if rank == 0:
         return int(seed)
     return int(np.random.SeedSequence([int(seed), int(rank)]).generate_state(1, np.uint64)[0]
                >> np.uint64(1))
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """``tensor`` summed over the ranks (a new tensor; the input is kept):
-    the global denominators of the criterion.  The identity for one rank."""
-    if get_world_size() == 1:
+_DATA, _WORLD = "data", "world"  # a helper's group: the data axis or every rank
+
+
+def _resolve(group):
+    """(torch group, its size) of a helper's ``group`` argument: ``"data"``,
+    ``"world"`` or a group object."""
+    if group == _DATA:
+        return data_group(), data_world()
+    if group == _WORLD:
+        return None, get_world_size()
+    return group, dist.get_world_size(group)
+
+
+def all_reduce_sum(tensor: torch.Tensor, group=_DATA) -> torch.Tensor:
+    """``tensor`` summed over ``group``'s ranks, by default one per batch
+    shard (a new tensor; the input is kept): the global denominators of the
+    criterion.  The identity for one rank."""
+    g, n = _resolve(group)
+    if n == 1:
         return tensor
     out = tensor.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=g)
     return out
 
 
-def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """Rank ``src``'s ``obj`` on every rank (a picklable value): its decisions."""
-    if get_world_size() == 1:
+def broadcast_object(obj: Any, src: int = 0, group=_WORLD) -> Any:
+    """``group``'s member ``src``'s ``obj`` on every rank of ``group`` (a
+    picklable value), by default rank 0's on every rank: its decisions."""
+    g, n = _resolve(group)
+    if n == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src, device=comm_device())
+    dist.broadcast_object_list(box, src=_group_src(g, src), group=g, device=comm_device())
     return box[0]
 
 
-def gather_rows(rows: List) -> Optional[List]:
-    """Every rank's ``rows`` concatenated in rank order, on rank 0 (None on
-    the others)."""
-    if get_world_size() == 1:
+def gather_rows(rows: List, group=_DATA) -> Optional[List]:
+    """Every rank's ``rows`` of ``group`` (by default one rank per batch
+    shard) concatenated in rank order, on rank 0 (None on the others)."""
+    g, n = _resolve(group)
+    if n == 1:
         return list(rows)
-    parts: List = [None] * get_world_size()
-    dist.all_gather_object(parts, rows)
+    parts: List = [None] * n
+    dist.all_gather_object(parts, rows, group=g)
     return [r for part in parts for r in part] if is_main_process() else None
 
 
-def barrier() -> None:
-    if get_world_size() > 1:
-        dist.barrier()
+def barrier(group=_WORLD) -> None:
+    g, n = _resolve(group)
+    if n > 1:
+        dist.barrier(group=g)
 
 
-def reduce_dict(input_dict: Dict[str, float], average: bool = True) -> Dict[str, float]:
-    """Average (or sum) python-scalar metrics over the ranks in one
-    ``all_reduce`` of a float64 vector, as the JAX package's allgather-sum."""
-    world = get_world_size()
+def reduce_dict(input_dict: Dict[str, float], average: bool = True,
+                group=_DATA) -> Dict[str, float]:
+    """Average (or sum) python-scalar metrics over ``group``'s ranks (by
+    default one per batch shard) in one ``all_reduce`` of a float64 vector,
+    as the JAX package's allgather-sum."""
+    g, world = _resolve(group)
     if world == 1:
         return dict(input_dict)
     names = sorted(input_dict)
     values = torch.tensor([float(input_dict[k]) for k in names], dtype=torch.float64,
                           device=comm_device())
-    dist.all_reduce(values)
+    dist.all_reduce(values, group=g)
     if average:
         values /= world
     return dict(zip(names, values.cpu().tolist()))

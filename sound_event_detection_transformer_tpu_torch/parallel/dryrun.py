@@ -3,8 +3,12 @@ against world 1 on the same global batch.
 
 Counterpart of the JAX package's multichip dryrun (``__graft_entry__``'s
 five legs).  A leg is a function of one input dict that runs at the current
-world (the process group's, or one process without a group) and returns a
-result dict; the same call at world 1 is the reference.
+world (the process group's under its (data x model) layout, or one process
+without a group) and returns a result dict; the same call at world 1 is the
+reference.  Each leg builds its model whole, loads the whole weights and cuts
+them to its model rank's part (``mesh.shard_model``); its results hold the
+whole parameters and gradients again (``mesh.full_state_dict``), so a
+layout's results compare with world 1's entry by entry.
 
 * ``step``: the supervised train step (plain, ``fine_tune``, ``normalize``,
   and SP-SEDT under a ``self_sup`` config), augment off;
@@ -16,13 +20,15 @@ result dict; the same call at world 1 is the reference.
 * ``audio_tag``: the audio-tag step.
 
 :func:`spawn` runs :func:`run_legs` on N processes of a fresh group
-(``torch.multiprocessing.spawn``; a child's failure raises in the caller),
+(``torch.multiprocessing.spawn``; a child's failure raises in the caller)
+under one layout, :func:`default_mesh` the JAX dryrun's layout for a world,
 :func:`compare` holds a world-N result against world 1, and
 :func:`tiny_inputs` makes every leg's inputs at the tiny test config from
 seeds.  The root script ``dryrun_multigpu_torch.py`` runs the whole dryrun.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -34,7 +40,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..config import SEDTConfig
+from ..config import MeshConfig, SEDTConfig
 from ..data.dataset import batch_iterator, collate
 from ..data.encoder import BoxEncoder
 from ..data.feature_bank import FeatureBank
@@ -45,8 +51,23 @@ from ..models.criterion import DenseTargets
 from ..ops import hungarian
 from ..parallel.optim import make_audio_tag_optimizer
 from ..train_lib import AT_CLIP_MAX_NORM, make_audio_tag_step
-from .distribute import all_reduce_sum, get_rank, get_world_size, init_distributed, rank_seed
-from .mesh import local_sizes, share, wrap_model
+from . import tensor
+from .distribute import (
+    all_reduce_sum,
+    clear_layout,
+    data_group,
+    data_rank,
+    data_world,
+    get_rank,
+    get_world_size,
+    init_distributed,
+    init_layout,
+    layout_shape,
+    model_rank,
+    model_world,
+    rank_seed,
+)
+from .mesh import full_state_dict, local_sizes, share, shard_model, shard_state_dict, wrap_model
 
 
 # ------------------------------------------------------------------ process group
@@ -74,14 +95,25 @@ def _child(rank: int, world: int, store: str, backend: str, device: str, fn: Cal
     init_distributed(backend=backend, device=device, init_method=f"file://{store}", rank=rank,
                      world_size=world)
     fn(*args)
+    clear_layout()
     dist.destroy_process_group()
 
 
-def run_legs(inputs_path: str, out_dir: str, names: Sequence[str]) -> None:
-    """Run the legs ``names`` on this rank with the inputs saved at
+def default_mesh(world: int) -> MeshConfig:
+    """The JAX dryrun's layout for ``world`` ranks: two model ranks when the
+    world is even and at least 4 (``__graft_entry__.py:132``), the rest on
+    the data axis."""
+    return MeshConfig(n_model=2 if world % 2 == 0 and world >= 4 else 1)
+
+
+def run_legs(inputs_path: str, out_dir: str, names: Sequence[str],
+             mesh: Optional[MeshConfig] = None) -> None:
+    """Run the legs ``names`` on this rank under the layout ``mesh`` (every
+    rank on the data axis when None) with the inputs saved at
     ``inputs_path`` (``{name: input dict}``); each rank saves its result of
     leg ``name`` to ``<out_dir>/<name>_rank<r>.pt`` (rank 0's with the
-    parameters and the first step's gradients, the others' without)."""
+    whole parameters and first-step gradients, the others' without)."""
+    init_layout(mesh or MeshConfig())
     inputs = torch.load(inputs_path, weights_only=False)
     os.makedirs(out_dir, exist_ok=True)
     for name in names:
@@ -115,16 +147,18 @@ class exact_math:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
-def _keep_grads(optimizer, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """Make ``optimizer.step`` keep the first update's gradients (after
-    DDP's mean, before the clip) on the CPU; returns the dict it fills."""
+def _keep_grads(optimizer, model: torch.nn.Module, spec: Dict) -> Dict[str, torch.Tensor]:
+    """Make ``optimizer.step`` keep the first update's whole gradients (after
+    DDP's mean, before the clip; the cut ones gathered over the model group)
+    on the CPU; returns the dict it fills."""
     grads: Dict[str, torch.Tensor] = {}
     real = optimizer.step
 
     def step():
         if not grads:
-            grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
-                          if p.grad is not None})
+            local = {n: p.grad.detach() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            grads.update({n: g.cpu().clone() for n, g in full_state_dict(local, spec).items()})
         real()
 
     optimizer.step = step
@@ -132,8 +166,9 @@ def _keep_grads(optimizer, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def _global(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The partial metrics summed over the ranks (one collective): the global
-    values, as numpy."""
+    """The partial metrics summed over the data axis (one collective; the
+    ranks of a model group hold the same partial): the global values, as
+    numpy."""
     keys = sorted(metrics)
     flat = torch.cat([metrics[k].detach().float().reshape(-1) for k in keys])
     flat = all_reduce_sum(flat).cpu().numpy()
@@ -145,15 +180,27 @@ def _global(metrics: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _ranks_equal(model: torch.nn.Module) -> bool:
-    """Whether this rank's parameters equal rank 0's bit for bit (rank 0's
-    broadcast; True for one process)."""
-    if get_world_size() == 1:
+def _same_as(flat: torch.Tensor, group, n: int) -> bool:
+    """Whether ``flat`` equals the first member's of ``group`` (of ``n``
+    ranks) bit for bit (its broadcast; True for one rank or none to hold)."""
+    if n == 1 or flat.numel() == 0:
         return True
-    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
     ref = flat.clone()
-    dist.broadcast(ref, 0)
+    dist.broadcast(ref, 0 if group is None else dist.get_global_rank(group, 0), group=group)
     return bool(torch.equal(ref, flat))
+
+
+def _ranks_equal(model: torch.nn.Module) -> Dict[str, bool]:
+    """Whether this rank's replicated parameters equal rank 0's and its
+    parts of the cut ones equal its model index's on data rank 0, bit for
+    bit (two broadcasts; True for one process)."""
+    whole, cut = [], []
+    for p in model.parameters():
+        (cut if getattr(p, "model_shard_dim", None) is not None else whole).append(
+            p.detach().reshape(-1))
+    flat = lambda ts: torch.cat(ts) if ts else torch.zeros(0)
+    return {"replicated": _same_as(flat(whole), None, get_world_size()),
+            "cut": _same_as(flat(cut), data_group(), data_world())}
 
 
 def _device(name: str) -> torch.device:
@@ -170,15 +217,16 @@ def _sync(dev: torch.device) -> None:
 
 
 def _allreduce_ms(model: torch.nn.Module, dev: torch.device, reps: int = 3) -> float:
-    """ms of one all_reduce of the trainable gradients' bytes, alone (the
-    gradient traffic of a step without DDP's overlap with the backward)."""
+    """ms of one all_reduce over the data group of this rank's trainable
+    gradients' bytes, alone (the gradient traffic of a step without DDP's
+    overlap with the backward)."""
     n = sum(p.numel() for p in model.parameters() if p.requires_grad)
     buf = torch.zeros(n, dtype=torch.float32, device=dev)
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=data_group())
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(reps):
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=data_group())
     _sync(dev)
     return (time.perf_counter() - t0) / reps * 1e3
 
@@ -191,40 +239,83 @@ def _share_batch(batch: Batch, streams: Optional[Sequence[int]]) -> Batch:
 
 
 def _model(cfg: SEDTConfig, state: Dict, dev: torch.device):
+    """The whole model with the whole ``state``, cut to this rank's part of
+    the model axis: (model, loss weights, its parameter spec)."""
     model, wd = build_model(cfg, device=dev)
     model.load_state_dict(state)
-    return model, wd
+    return model, wd, shard_model(model)
 
 
-def _finish(res: Dict, model: torch.nn.Module, dev: torch.device, inp: Dict) -> Dict:
+def _finish(res: Dict, model: torch.nn.Module, dev: torch.device, inp: Dict,
+            spec: Dict) -> Dict:
     # after one step the final parameters are the first step's (one copy saved)
-    res["params"] = res["params1"] if len(res["loss"]) == 1 else _params(model)
+    res["params"] = res["params1"] if len(res["loss"]) == 1 else _params(model, spec)
     res["world"] = get_world_size()
-    if inp.get("time_allreduce") and get_world_size() > 1:
+    res["layout"] = [data_world(), model_world()]
+    res["place"] = [data_rank(), model_rank()]
+    res["n_cut"] = sum(dim is not None for dim in spec.values())  # parameters cut over model
+    if inp.get("time_allreduce") and data_world() > 1:
         res["allreduce_ms"] = _allreduce_ms(model, dev)
     return res
 
 
-def _params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+def _params(model: torch.nn.Module, spec: Dict) -> Dict[str, torch.Tensor]:
+    """The whole parameters and buffers on the CPU (a collective over the
+    model group)."""
+    return {k: v.detach().cpu().clone() for k, v in full_state_dict(model, spec).items()}
 
 
-def _run_steps(step_fn, model, dev, steps: int) -> Dict:
+class _CollectiveTimer:
+    """``parallel.tensor.timer`` on a card: CUDA events around every
+    tensor-parallel ``all_reduce``, summed by :meth:`ms` after the step's
+    synchronize."""
+
+    def __init__(self):
+        self.spans = []
+
+    @contextlib.contextmanager
+    def __call__(self):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.spans.append((start, end))
+
+    def ms(self) -> float:
+        total = sum(start.elapsed_time(end) for start, end in self.spans)
+        self.spans = []
+        return total
+
+
+def _run_steps(step_fn, model, dev, steps: int, spec: Dict,
+               time_collectives: bool = False) -> Dict:
     """``step_fn()`` ``steps`` times: the global metrics of every step, the
-    ranks' equality after it, its seconds, the parameters after the first
-    (``params1``) and K1's launches and last shape."""
+    ranks' equality after it (``ranks_equal``; ``replicated_equal`` and
+    ``cut_equal`` apart), its seconds, the parameters after the first
+    (``params1``) and K1's launches and last shape; with
+    ``time_collectives`` each step's ms in the tensor-parallel all_reduces
+    (``collective_ms``, a list of a step's calls' sum)."""
     k1 = hungarian.lsap_lane.launches
-    res = {"metrics": [], "ranks_equal": [], "step_s": []}
+    res = {"metrics": [], "ranks_equal": [], "replicated_equal": [], "cut_equal": [],
+           "step_s": [], "collective_ms": []}
+    timer = _CollectiveTimer() if time_collectives else None
+    tensor.timer = timer
     for i in range(steps):
         _sync(dev)
         t0 = time.perf_counter()
         metrics = step_fn()
         _sync(dev)
         res["step_s"].append(time.perf_counter() - t0)
+        if timer is not None:
+            res["collective_ms"].append(timer.ms())
         res["metrics"].append(_global(metrics))
-        res["ranks_equal"].append(_ranks_equal(model))
+        equal = _ranks_equal(model)
+        res["replicated_equal"].append(equal["replicated"])
+        res["cut_equal"].append(equal["cut"])
+        res["ranks_equal"].append(equal["replicated"] and equal["cut"])
         if i == 0:
-            res["params1"] = _params(model)
+            res["params1"] = _params(model, spec)
+    tensor.timer = None
     res["loss"] = [float(m["loss"]) for m in res["metrics"]]
     res["k1"] = hungarian.lsap_lane.launches - k1
     res["k1_shape"] = getattr(hungarian.lsap_lane, "last_shape", None)
@@ -235,19 +326,23 @@ def leg_step(inp: Dict) -> Dict:
     """The supervised (or, under a ``self_sup`` config, SP-SEDT) train step
     on this rank's share of ``inp["batch"]`` (streams ``inp["streams"]``),
     ``inp["steps"]`` times, augment off; ``inp["kind"]`` holds
-    ``fine_tune`` / ``normalize``."""
+    ``fine_tune`` / ``normalize``.  The step generator is seeded by data
+    rank; ``inp["seed_by"] = "rank"`` seeds it by global rank instead, which
+    breaks the model group's lockstep (a check that the lockstep matters)."""
     dev, cfg = _device(inp["device"]), inp["cfg"]
     with exact_math():
-        model, wd = _model(cfg, inp["state"], dev)
+        model, wd, spec = _model(cfg, inp["state"], dev)
         state = init_train_state(model, cfg, inp.get("steps_per_epoch", 10))
-        grads = _keep_grads(state.optimizer, model)
+        grads = _keep_grads(state.optimizer, model, spec)
         step = make_train_step(wrap_model(model, dev), wd, cfg, state.optimizer,
                                augment_on=False, device=dev, **inp.get("kind", {}))
         batch = _share_batch(inp["batch"], inp.get("streams"))
-        gen = torch.Generator(device=dev).manual_seed(rank_seed(inp.get("seed", 0)))
-        res = _run_steps(lambda: step(batch, gen), model, dev, inp["steps"])
+        rank = get_rank() if inp.get("seed_by") == "rank" else None
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(inp.get("seed", 0), rank))
+        res = _run_steps(lambda: step(batch, gen), model, dev, inp["steps"], spec,
+                         inp.get("time_collectives", False))
     res["grads"] = grads
-    return _finish(res, model, dev, inp)
+    return _finish(res, model, dev, inp, spec)
 
 
 def leg_semi(inp: Dict) -> Dict:
@@ -256,13 +351,14 @@ def leg_semi(inp: Dict) -> Dict:
     views, at its local ``n_labeled``, ``inp["steps"]`` times with the EMA;
     the pseudo counts summed over the ranks."""
     dev, cfg = _device(inp["device"]), inp["cfg"]
-    local = local_sizes(inp["streams"], get_world_size())
+    local = local_sizes(inp["streams"], data_world())
     with exact_math():
-        model, wd = _model(cfg, inp["state"], dev)
+        model, wd, spec = _model(cfg, inp["state"], dev)
         state = init_train_state(model, cfg, inp.get("steps_per_epoch", 10), schedule="cosine")
-        teacher = make_teacher(model)
-        teacher.load_state_dict(inp["teacher"])
-        grads = _keep_grads(state.optimizer, model)
+        teacher = make_teacher(model)  # cut as the student is
+        teacher.load_state_dict(shard_state_dict(inp["teacher"], spec, model_rank(),
+                                                 model_world()))
+        grads = _keep_grads(state.optimizer, model, spec)
         state = state._replace(model=wrap_model(model, dev))
         step = make_semi_train_step(wd, cfg, n_labeled=local[0] + local[1], device=dev,
                                     **inp.get("kind", {}))
@@ -277,15 +373,15 @@ def leg_semi(inp: Dict) -> Dict:
             metrics, counts = step(state, teacher, *args, targets, *flags, thr, gen, True)
             return dict(metrics, pseudo_counts=counts)
 
-        res = _run_steps(one, model, dev, inp["steps"])
+        res = _run_steps(one, model, dev, inp["steps"], spec)
     res["grads"] = grads
-    res["teacher"] = {k: v.detach().cpu().clone() for k, v in teacher.state_dict().items()}
-    return _finish(res, model, dev, inp)
+    res["teacher"] = _params(teacher, spec)
+    return _finish(res, model, dev, inp, spec)
 
 
 def leg_bank(inp: Dict) -> Dict:
     """The feature bank of the ``inp["clips"]`` seeded clips of seed
-    ``inp["clip_seed"]`` (sharded over the ranks of a group of several),
+    ``inp["clip_seed"]`` (sharded over the data axis in a group of several),
     gathered at every global index
     list of ``inp["indexes"]`` and checked row for row against the
     dataset's features of this rank's share, each gather's seconds kept;
@@ -309,9 +405,9 @@ def leg_bank(inp: Dict) -> Dict:
                         world=get_world_size())
         if not inp.get("train", True):
             return gathered
-        model, wd = _model(cfg, inp["state"], dev)
+        model, wd, spec = _model(cfg, inp["state"], dev)
         state = init_train_state(model, cfg, len(inp["indexes"]))
-        grads = _keep_grads(state.optimizer, model)
+        grads = _keep_grads(state.optimizer, model, spec)
         step = make_train_step(wrap_model(model, dev), wd, cfg, state.optimizer,
                                augment_on=False, device=dev)
         gen = torch.Generator(device=dev).manual_seed(rank_seed(inp.get("seed", 0)))
@@ -323,9 +419,9 @@ def leg_bank(inp: Dict) -> Dict:
             b = next(batches)
             return step(b._replace(feats=bank.gather(b.indexes), indexes=None), gen)
 
-        res = _run_steps(one, model, dev, len(inp["indexes"]))
+        res = _run_steps(one, model, dev, len(inp["indexes"]), spec)
     res.update(grads=grads, **gathered)
-    return _finish(res, model, dev, inp)
+    return _finish(res, model, dev, inp, spec)
 
 
 def leg_audio_tag(inp: Dict) -> Dict:
@@ -335,13 +431,14 @@ def leg_audio_tag(inp: Dict) -> Dict:
     with exact_math():
         model = AudioTagBackbone(*inp["model"], logits_out=True).to(dev).eval()
         model.load_state_dict(inp["state"])
+        spec = shard_model(model)  # no transformer: every parameter replicated
         opt = make_audio_tag_optimizer(model, inp["lr"], 100, 10, AT_CLIP_MAX_NORM)
-        grads = _keep_grads(opt, model)
+        grads = _keep_grads(opt, model, spec)
         step = make_audio_tag_step(wrap_model(model, dev), opt)
         x, y = share(inp["x"]).to(dev), share(inp["y"]).to(dev)
-        res = _run_steps(lambda: {"loss": step(x, y)}, model, dev, inp["steps"])
+        res = _run_steps(lambda: {"loss": step(x, y)}, model, dev, inp["steps"], spec)
     res["grads"] = grads
-    return _finish(res, model, dev, inp)
+    return _finish(res, model, dev, inp, spec)
 
 
 LEGS = {"step": leg_step, "semi": leg_semi, "bank": leg_bank, "audio_tag": leg_audio_tag}
@@ -548,17 +645,22 @@ def lr_and_decay(inp: Dict):
 
 
 def run_dryrun(inputs: Dict[str, Dict], world: int, workdir: str, device: str,
-               backend: str = "gloo", tolerances: Optional[Dict[str, Dict]] = None) -> Dict:
+               backend: str = "gloo", tolerances: Optional[Dict[str, Dict]] = None,
+               mesh: Optional[MeshConfig] = None) -> Dict:
     """Every leg of ``inputs`` at world 1 in this process and at ``world``
-    in a spawned group; returns each leg's :func:`compare` (with
-    ``tolerances[name]`` where given), the bank leg's row checks, and the
-    legs' step seconds."""
+    in a spawned group under the layout ``mesh`` (:func:`default_mesh` when
+    None; one that does not fill the world raises before any process starts);
+    returns each leg's :func:`compare` (with ``tolerances[name]`` where
+    given) and its ``layout``, the bank leg's row checks, and the legs' step
+    seconds."""
+    mesh = mesh or default_mesh(world)
+    layout_shape(mesh, world)  # raise before any process starts
     ref = {name: LEGS[inp["leg"]](inp) for name, inp in inputs.items()}
     path = os.path.join(workdir, "dryrun_inputs.pt")
     os.makedirs(workdir, exist_ok=True)
     torch.save(inputs, path)
     out_dir = os.path.join(workdir, "dryrun_results")
-    spawn(run_legs, world, (path, out_dir, list(inputs)), workdir, device=device,
+    spawn(run_legs, world, (path, out_dir, list(inputs), mesh), workdir, device=device,
           backend=backend)
     report = {}
     for name, inp in inputs.items():
@@ -567,6 +669,7 @@ def run_dryrun(inputs: Dict[str, Dict], world: int, workdir: str, device: str,
         report[name] = compare(ref[name], got, inp["state"], lr, wd,
                                **(tolerances or {}).get(name, {}))
         report[name]["step_s"] = got[0]["step_s"]
+        report[name]["layout"] = got[0]["layout"]
         if inp["leg"] == "bank":
             bank_ok = all(all(r["bank_equal"]) for r in got) and all(ref[name]["bank_equal"])
             report[name]["bank_equal"] = bank_ok

@@ -10,7 +10,9 @@ Counterpart of the JAX package's ``parallel/optim.py``:
   backward still runs through them for the input gradient that ``conv0``
   needs).  FrozenBN statistics are buffers and never reach the optimizer;
 * clip by global norm, optax's rule: scale by max / norm when norm >= max
-  (``torch.nn.utils.clip_grad_norm_`` divides by norm + 1e-6 instead);
+  (``torch.nn.utils.clip_grad_norm_`` divides by norm + 1e-6 instead); under
+  tensor parallel the norm of the parameters cut over the model axis is
+  summed over the model group;
 * AdamW with two groups, ``main`` at ``lr`` and ``backbone`` at
   ``lr_backbone``, decaying every parameter of both on every update, as
   optax's ``add_decayed_weights`` does (so a parameter with no gradient gets a
@@ -32,6 +34,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import torch
 
 from ..config import TrainConfig
+from .distribute import all_reduce_sum, model_group, model_world
 
 _TRAINABLE_BACKBONE = re.compile(r"^backbone\.(conv0|layer[234]_)")
 LABELS = ("main", "backbone", "frozen")
@@ -76,10 +79,24 @@ def cosine_lr(base_lr: float, total_epochs: int, steps_per_epoch: int,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[List[bool]] = None) -> torch.Tensor:
     """Scale ``grads`` in place by max_norm / norm when their global norm is
-    not below ``max_norm`` (optax's rule); returns the norm.  No host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    not below ``max_norm`` (optax's rule); returns the norm.  No host sync.
+
+    ``sharded`` flags the gradients that are this rank's slice of a
+    parameter cut over the model axis: with several model ranks their
+    squared norms are summed over the model group (one ``all_reduce``) and
+    the replicated ones counted once, so every rank clips by the one global
+    norm, not by its own."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded is not None and any(sharded) and model_world() > 1:
+        cut = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        norm = torch.sqrt(all_reduce_sum(torch.where(cut, sq, 0.0).sum(), group=model_group())
+                          + torch.where(cut, 0.0, sq).sum())
+    else:
+        norm = torch.linalg.vector_norm(norms)
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -100,6 +117,8 @@ class SEDTOptimizer:
                  clip_max_norm: float, accumulate: int = 1):
         labels = [label for label in ("main", "backbone") if groups[label]]
         self.params = [p for label in labels for p in groups[label]]
+        # the parameters cut over the model axis (parallel.mesh.shard_model)
+        self.sharded = [getattr(p, "model_shard_dim", None) is not None for p in self.params]
         self.schedules = [schedules[label] for label in labels]
         self.adamw = torch.optim.AdamW(
             [{"params": groups[label], "lr": schedules[label](0)} for label in labels],
@@ -120,7 +139,7 @@ class SEDTOptimizer:
         grads = [p.grad for p in self.params]
         if self.accumulate > 1:
             torch._foreach_div_(grads, float(self.accumulate))
-        clip_by_global_norm_(grads, self.clip_max_norm)
+        clip_by_global_norm_(grads, self.clip_max_norm, self.sharded)
         for group, sched in zip(self.adamw.param_groups, self.schedules):
             group["lr"] = sched(self.updates)
         self.adamw.step()

@@ -91,16 +91,19 @@ from .ops.frontend import make_frontend_fn
 from .parallel.distribute import (
     all_reduce_sum,
     broadcast_object,
+    data_rank,
+    data_world,
     gather_rows,
-    get_rank,
     get_reduced_loss,
     get_world_size,
     is_main_process,
     local_rank,
+    model_world,
     rank_seed,
 )
 from .parallel.mesh import local_sizes, share, wrap_model
 from .parallel.optim import SEDTOptimizer, make_audio_tag_optimizer
+from .parallel.tensor import same_bits_on_every_rank
 from .utils.checkpoint import (
     EarlyStopping,
     SaveBest,
@@ -518,7 +521,7 @@ def evaluate(
     clip = lambda t: float(np.clip(t, 0, seconds))
     t_steps = t_decode = 0.0
     n_batches = 0
-    world = get_world_size()
+    world = data_world()
     batches = ordered_batches(len(dataset), bs)
     per_rank = -(-len(batches) // world)
     batches += [[-1] * bs] * (per_rank * world - len(batches))
@@ -698,8 +701,14 @@ def trainer_device(device: Optional[torch.device | str]) -> torch.device:
 
 
 def _check_layout(cfg: SEDTConfig, stream_sizes: Sequence[int]) -> None:
-    """Raise, before any data is read, for a global batch whose streams do
-    not divide over the ranks."""
+    """Raise, before any data is read, for a layout the trainers do not run:
+    a model axis (they keep every rank on the data axis, as the JAX
+    trainers build ``MeshConfig()``; the dryrun reaches the model axis), or
+    a global batch whose streams do not divide over the ranks, all of which
+    are then the data axis."""
+    if model_world() > 1:
+        raise ValueError("the trainers run every rank on the data axis: a layout with "
+                         f"{model_world()} model ranks is the dryrun's")
     local_sizes(stream_sizes, get_world_size())
 
 
@@ -707,7 +716,7 @@ def _gen_states(gen: torch.Generator) -> Dict:
     """The resume entries of the step generators: rank 0's state as
     ``generator`` and, in a group, every rank's as ``generators`` (a
     collective)."""
-    if get_world_size() == 1:
+    if data_world() == 1:
         return {"generator": gen.get_state()}
     states = gather_rows([gen.get_state()])
     return {"generator": gen.get_state(), "generators": states}
@@ -717,10 +726,10 @@ def _load_gen_state(gen: torch.Generator, ck: Dict) -> None:
     """Restore this rank's step generator from a checkpoint written by a run
     of the same world size."""
     states = ck.get("generators", [ck["generator"]])
-    if len(states) != get_world_size():
+    if len(states) != data_world():
         raise ValueError(f"--resume: the checkpoint holds {len(states)} rank(s)' generators, "
-                         f"this run has {get_world_size()}")
-    gen.set_state(states[get_rank()])
+                         f"this run has {data_world()}")
+    gen.set_state(states[data_rank()])
 
 
 def _rng_state(rng: np.random.RandomState) -> Dict:
@@ -1259,7 +1268,7 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     bs = args.semi_batch_size
     batch_sizes = [bs // 4, bs // 4, 2 * bs // 4]
     _check_layout(cfg, batch_sizes)
-    local = local_sizes(batch_sizes, get_world_size())
+    local = local_sizes(batch_sizes, data_world())
     if args.log:
         set_logger(cfg.train.info)
     log = create_logger("train_ss_sedt_torch")
@@ -1532,11 +1541,12 @@ def make_audio_tag_step(model: AudioTagBackbone, optimizer: SEDTOptimizer):
     share: the local mean is N times the rank's partial of the global mean,
     its gradient's mean over the ranks is the global one, and the step
     returns the partial."""
-    world = get_world_size()
+    world = data_world()
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        loss = F.binary_cross_entropy_with_logits(model(x), y)
-        loss.backward()
+        with same_bits_on_every_rank():  # a model group's ranks compute it side by side
+            loss = F.binary_cross_entropy_with_logits(model(x), y)
+            loss.backward()
         optimizer.step()
         return loss.detach() / world if world > 1 else loss.detach()
 
@@ -1552,7 +1562,7 @@ def audio_tag_rows(model: AudioTagBackbone, dataset, encoder: ManyHotEncoder, ba
     batches and the rows are gathered on rank 0 (None on the others)."""
     n = len(dataset)
     index_batches = [list(range(b, min(b + batch_size, n))) for b in range(0, n, batch_size)]
-    rank, world = get_rank(), get_world_size()
+    rank, world = data_rank(), data_world()
     per_rank = -(-len(index_batches) // world)
     index_batches = index_batches[rank * per_rank:(rank + 1) * per_rank]
     rows: List[Tuple] = []

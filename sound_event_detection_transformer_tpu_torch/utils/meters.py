@@ -5,7 +5,7 @@ keeps a window of recent values plus global totals, ``MetricLogger`` groups
 meters and prints ETA lines, ``Heartbeat`` logs progress without touching the
 device, and ``DeviceMetricAccumulator`` sums each step's metric tensors on
 the device and fetches them once.  Over several processes both reduce over
-the ranks in one collective each.
+the data axis' ranks (one per batch shard) in one collective each.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 import torch.distributed as dist
 
-from ..parallel.distribute import comm_device, get_world_size
+from ..parallel.distribute import comm_device, data_group, data_world
 
 
 class AverageMeter:
@@ -79,10 +79,10 @@ class SmoothedValue:
     def synchronize_between_processes(self):
         """Sum (count, total) over the processes in one ``all_reduce``; the
         window stays this process's."""
-        if get_world_size() == 1:
+        if data_world() == 1:
             return
         t = torch.tensor([self.count, self.total], dtype=torch.float64, device=comm_device())
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=data_group())
         self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
@@ -181,9 +181,9 @@ class DeviceMetricAccumulator:
             return {}, self._w
         flat = torch.cat([v.reshape(-1).double() for v in self._sum]
                          + [torch.tensor([self._w], dtype=torch.float64, device=self._sum[0].device)])
-        if get_world_size() > 1:
+        if data_world() > 1:
             flat = flat.to(comm_device())
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=data_group())
         flat = flat.cpu().numpy()
         out: Dict[str, np.ndarray] = {}
         start = 0

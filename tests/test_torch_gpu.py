@@ -30,7 +30,10 @@ step's gradients to 1e-6, the update on the pinned entries to 1e-3 of the
 lr); over two ranks on the one
 card (gloo) against one process, to ``parallel.dryrun.compare``'s CPU
 tolerances, the ranks' parameters bit for bit and K1 once a step on each
-rank.
+rank.  Tensor parallel: the tiny train step with dropout 0.1 at (1 x 2)
+ranks on the one card (gloo) against one process, to the CPU tolerances,
+the replicated parameters bit for bit and K1 once a step on each rank at
+the whole batch's problems.
 """
 import dataclasses
 
@@ -39,7 +42,7 @@ import pytest
 import torch
 
 import chip_smoke
-from sound_event_detection_transformer_tpu_torch.config import SEDTConfig
+from sound_event_detection_transformer_tpu_torch.config import MeshConfig, SEDTConfig
 from sound_event_detection_transformer_tpu_torch.data.dataset import batch_iterator
 from sound_event_detection_transformer_tpu_torch.data.encoder import BoxEncoder
 from sound_event_detection_transformer_tpu_torch.data.feature_bank import FeatureBank
@@ -471,4 +474,31 @@ def test_ddp_world_2_over_gloo_on_one_card_equals_world_1(cuda, tmp_path):
     m = inp["cfg"].model
     for r in two:
         assert r["k1"] == 2 and tuple(r["k1_shape"]) == (m.dec_layers * 4, m.num_queries,
+                                                          m.max_events)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_1x2_over_gloo_on_one_card_equals_world_1(cuda, tmp_path):
+    """Two model ranks on the one card (gloo), the heads and hidden units cut
+    over them, dropout 0.1 drawn whole and sliced: the first step's
+    gradients, the loss and the update to ``parallel.dryrun.compare``'s CPU
+    tolerances against one process from the same seed, the replicated
+    parameters bit for bit, K1 once a step on each rank at the whole batch's
+    problems."""
+    inp = _tiny_flagship_step()
+    cfg = inp["cfg"]
+    inp = dict(inp, cfg=cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.1)))
+    one = dryrun.leg_step(inp)
+    path = tmp_path / "inputs.pt"
+    torch.save({"step": inp}, path)
+    dryrun.spawn(dryrun.run_legs, 2, (str(path), str(tmp_path / "out"), ["step"],
+                                      MeshConfig(n_model=2)), str(tmp_path),
+                 device="cuda:0", backend="gloo")
+    two = dryrun.load_results(str(tmp_path / "out"), "step", 2)
+    res = dryrun.compare(one, two, inp["state"], *dryrun.lr_and_decay(inp))
+    assert res["ok"] and res["ranks_equal"], res
+    m = inp["cfg"].model
+    for r in two:
+        assert r["layout"] == [1, 2] and r["n_cut"] > 0
+        assert r["k1"] == 2 and tuple(r["k1_shape"]) == (m.dec_layers * 8, m.num_queries,
                                                           m.max_events)
