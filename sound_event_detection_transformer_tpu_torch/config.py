@@ -2,12 +2,14 @@
 
 The port's own copy of the JAX package's ``config.py``: features, model, loss,
 data, augment and train dataclasses (everything ``train_lib.args_to_config``
-fills), the process layout ``MeshConfig`` (``n_data`` x ``n_model`` ranks, which
-``parallel.distribute.init_layout`` turns into process groups), the
-``urbansed_supervised`` / ``tiny_test`` presets, ``DCASE_CLASS_PRIOR`` and
-``load_classes_from_tsv``.  Field names, defaults and
-presets are the JAX package's, so a configuration means the same thing on
-both sides.
+fills), the process layout ``MeshConfig``, the ``urbansed_supervised`` /
+``tiny_test`` presets, ``DCASE_CLASS_PRIOR`` and ``load_classes_from_tsv``.
+Field names, defaults and presets are the JAX package's, so a configuration
+means the same thing on both sides.  ``MeshConfig`` keeps the JAX one's two
+sizes, not its axis names, and ``SEDTConfig`` carries no mesh: the layout is
+handed to ``parallel.distribute.init_layout`` alone (the JAX trainers ignore
+``cfg.mesh`` and build ``MeshConfig()``; the port's trainers keep every rank
+on the data axis).
 """
 from __future__ import annotations
 
@@ -212,8 +214,6 @@ class MeshConfig:
     (``parallel.mesh.TP_RULES``).  Rank r sits at data index r // n_model,
     model index r % n_model, as ``make_mesh`` lays devices out row-major."""
 
-    data_axis: str = "data"
-    model_axis: str = "model"
     n_data: int = -1  # -1: every rank left over on the data axis
     n_model: int = 1
 
@@ -226,7 +226,6 @@ class SEDTConfig:
     data: DataConfig = field(default_factory=DataConfig)
     augment: AugmentConfig = field(default_factory=AugmentConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
-    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "SEDTConfig":
         return dataclasses.replace(self, **kw)

@@ -44,17 +44,10 @@ def _linear(d_in: int, d_out: int) -> nn.Linear:
 
 
 def _row_split(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """A row-split projection, as the unsplit one computes it: the operands
-    rounded to the compute type (bf16 under autocast), the partial product
-    taken in f32, summed over the model group in f32, the bias (rounded
-    alike) added once, the sum rounded once.  Rounding each rank's partial
-    to bf16 before the sum would move every output by a rounding that the
-    unsplit projection does not make."""
-    dev = x.device.type
-    dt = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
-    with torch.autocast(dev, enabled=False):
-        part = F.linear(x.to(dt).float(), lin.weight.to(dt).float())
-        return (reduce_from_model(part) + lin.bias.to(dt).float()).to(dt)
+    """A row-split projection: this rank's partial product summed over the
+    model group, then the bias added once, in the product's type."""
+    out = reduce_from_model(F.linear(x, lin.weight))
+    return out + lin.bias.to(out.dtype)
 
 
 class MultiHeadAttention(nn.Module):

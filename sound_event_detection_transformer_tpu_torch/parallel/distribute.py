@@ -139,11 +139,6 @@ def model_group():
     return _layout.model_group if _layout is not None else None
 
 
-def _group_src(group, src: int) -> int:
-    """The global rank of ``group``'s member ``src``."""
-    return src if group is None else dist.get_global_rank(group, src)
-
-
 def local_rank() -> int:
     """This process's index on its machine: torchrun's ``LOCAL_RANK``, else 0."""
     return int(os.environ.get("LOCAL_RANK", "0"))
@@ -210,71 +205,53 @@ def rank_seed(seed: int, rank: Optional[int] = None) -> int:
                >> np.uint64(1))
 
 
-_DATA, _WORLD = "data", "world"  # a helper's group: the data axis or every rank
-
-
-def _resolve(group):
-    """(torch group, its size) of a helper's ``group`` argument: ``"data"``,
-    ``"world"`` or a group object."""
-    if group == _DATA:
-        return data_group(), data_world()
-    if group == _WORLD:
-        return None, get_world_size()
-    return group, dist.get_world_size(group)
-
-
-def all_reduce_sum(tensor: torch.Tensor, group=_DATA) -> torch.Tensor:
-    """``tensor`` summed over ``group``'s ranks, by default one per batch
-    shard (a new tensor; the input is kept): the global denominators of the
-    criterion.  The identity for one rank."""
-    g, n = _resolve(group)
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` summed over ``group``'s ranks, by default the data group's
+    (one rank per batch shard), as a new tensor (the input is kept): the
+    global denominators of the criterion.  The identity for one rank."""
+    n = data_world() if group is None else dist.get_world_size(group)
     if n == 1:
         return tensor
     out = tensor.detach().clone()
-    dist.all_reduce(out, group=g)
+    dist.all_reduce(out, group=data_group() if group is None else group)
     return out
 
 
-def broadcast_object(obj: Any, src: int = 0, group=_WORLD) -> Any:
-    """``group``'s member ``src``'s ``obj`` on every rank of ``group`` (a
-    picklable value), by default rank 0's on every rank: its decisions."""
-    g, n = _resolve(group)
-    if n == 1:
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank ``src``'s ``obj`` on every rank (a picklable value): its decisions."""
+    if get_world_size() == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=_group_src(g, src), group=g, device=comm_device())
+    dist.broadcast_object_list(box, src=src, device=comm_device())
     return box[0]
 
 
-def gather_rows(rows: List, group=_DATA) -> Optional[List]:
-    """Every rank's ``rows`` of ``group`` (by default one rank per batch
-    shard) concatenated in rank order, on rank 0 (None on the others)."""
-    g, n = _resolve(group)
-    if n == 1:
+def gather_rows(rows: List) -> Optional[List]:
+    """Every data rank's ``rows`` (one rank per batch shard) concatenated in
+    data-rank order, on rank 0 (None on the others)."""
+    if data_world() == 1:
         return list(rows)
-    parts: List = [None] * n
-    dist.all_gather_object(parts, rows, group=g)
+    parts: List = [None] * data_world()
+    dist.all_gather_object(parts, rows, group=data_group())
     return [r for part in parts for r in part] if is_main_process() else None
 
 
-def barrier(group=_WORLD) -> None:
-    g, n = _resolve(group)
-    if n > 1:
-        dist.barrier(group=g)
+def barrier() -> None:
+    if get_world_size() > 1:
+        dist.barrier()
 
 
-def reduce_dict(input_dict: Dict[str, float], average: bool = True,
-                group=_DATA) -> Dict[str, float]:
-    """Average (or sum) python-scalar metrics over ``group``'s ranks (by
-    default one per batch shard) in one ``all_reduce`` of a float64 vector,
-    as the JAX package's allgather-sum."""
-    g, world = _resolve(group)
+def reduce_dict(input_dict: Dict[str, float], average: bool = True) -> Dict[str, float]:
+    """Average (or sum) python-scalar metrics over the data ranks (one per
+    batch shard) in one ``all_reduce`` of a float64 vector, as the JAX
+    package's allgather-sum."""
+    world = data_world()
     if world == 1:
         return dict(input_dict)
     names = sorted(input_dict)
     values = torch.tensor([float(input_dict[k]) for k in names], dtype=torch.float64,
                           device=comm_device())
-    dist.all_reduce(values, group=g)
+    dist.all_reduce(values, group=data_group())
     if average:
         values /= world
     return dict(zip(names, values.cpu().tolist()))

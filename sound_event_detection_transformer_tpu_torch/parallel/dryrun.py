@@ -109,15 +109,20 @@ def default_mesh(world: int) -> MeshConfig:
 def run_legs(inputs_path: str, out_dir: str, names: Sequence[str],
              mesh: Optional[MeshConfig] = None) -> None:
     """Run the legs ``names`` on this rank under the layout ``mesh`` (every
-    rank on the data axis when None) with the inputs saved at
-    ``inputs_path`` (``{name: input dict}``); each rank saves its result of
-    leg ``name`` to ``<out_dir>/<name>_rank<r>.pt`` (rank 0's with the
-    whole parameters and first-step gradients, the others' without)."""
-    init_layout(mesh or MeshConfig())
+    rank on the data axis when None; an input's own ``"mesh"`` wins) with
+    the inputs saved at ``inputs_path`` (``{name: input dict}``); each rank
+    saves its result of leg ``name`` to ``<out_dir>/<name>_rank<r>.pt``
+    (rank 0's with the whole parameters and first-step gradients, the
+    others' without)."""
     inputs = torch.load(inputs_path, weights_only=False)
     os.makedirs(out_dir, exist_ok=True)
+    laid = None
     for name in names:
         inp = inputs[name]
+        want = inp.get("mesh") or mesh or MeshConfig()
+        if want != laid:  # a collective: every rank runs the same legs in one order
+            init_layout(want)
+            laid = want
         res = LEGS[inp["leg"]](inp)
         if get_rank() != 0:
             res = {k: v for k, v in res.items()

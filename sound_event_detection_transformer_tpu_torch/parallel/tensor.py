@@ -10,9 +10,8 @@ Megatron form:
   the part that flows through its heads or hidden units;
 * :func:`reduce_from_model` on the output of a row-split projection
   (``out_proj``, the FFN's second linear), before its bias: the
-  ``all_reduce`` of the ranks' partial products forward, in f32 whatever
-  the partial's type (the caller adds the bias once and rounds once, as the
-  one-rank projection's epilogue does); the identity backward, the output's
+  ``all_reduce`` of the ranks' partial products forward, in the partial's
+  type (the caller adds the bias once); the identity backward, the output's
   gradient being replicated.
 
 Both are the identity with one rank on the model axis.  ``all_reduce`` is
@@ -34,9 +33,9 @@ from .distribute import model_group, model_world
 timer: Optional[Callable] = None  # a context-manager factory: with timer(): around each call
 
 
-def _all_reduce(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A contiguous copy of ``x`` in ``dtype``, summed over the model group."""
-    out = x.to(dtype, memory_format=torch.contiguous_format, copy=True)
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x``, summed over the model group."""
+    out = x.clone(memory_format=torch.contiguous_format)
     with timer() if timer is not None else contextlib.nullcontext():
         dist.all_reduce(out, group=model_group())
     return out
@@ -49,18 +48,17 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, grad.dtype)
+        return _all_reduce(grad)
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        ctx.dtype = x.dtype
-        return _all_reduce(x, torch.float32)
+        return _all_reduce(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.to(ctx.dtype)
+        return grad
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -69,8 +67,7 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the model group, in f32; its gradient passed
-    through in ``x``'s type."""
+    """``x`` summed over the model group; its gradient passed through."""
     return x if model_world() == 1 else _ReduceFromModel.apply(x)
 
 

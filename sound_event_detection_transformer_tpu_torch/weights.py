@@ -5,17 +5,14 @@ nested dicts of numpy arrays and returns a ``state_dict`` for the port's
 modules, whose names mirror the flax tree.  Load it with ``strict=True`` so
 that a missing or unused key fails.  A gradient tree has the ``params``
 tree's layout, so ``from_flax(grads, {})`` maps it onto the port's parameter
-names and layouts too.  ``from_flax_part`` gives one model rank's part of
-those weights for a model cut over the model axis (``parallel.mesh``).
+names and layouts too.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
-
-from .parallel.mesh import shard_state_dict
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -49,12 +46,3 @@ def from_flax(params: Mapping[str, Any], frozen: Mapping[str, Any]) -> Dict[str,
     for path, value in _leaves(frozen):  # FrozenBN buffers keep their names
         state[".".join(path)] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     return state
-
-
-def from_flax_part(params: Mapping[str, Any], frozen: Mapping[str, Any],
-                   spec: Mapping[str, Optional[int]], model_rank: int,
-                   n_model: int) -> Dict[str, torch.Tensor]:
-    """:func:`from_flax`, cut to model rank ``model_rank``'s part of ``spec``
-    (``parallel.mesh.param_spec`` of the port's model at ``n_model``): the
-    ``state_dict`` of a model that ``parallel.mesh.shard_model`` cut."""
-    return shard_state_dict(from_flax(params, frozen), spec, model_rank, n_model)

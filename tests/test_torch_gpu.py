@@ -502,3 +502,30 @@ def test_tensor_parallel_1x2_over_gloo_on_one_card_equals_world_1(cuda, tmp_path
         assert r["layout"] == [1, 2] and r["n_cut"] > 0
         assert r["k1"] == 2 and tuple(r["k1_shape"]) == (m.dec_layers * 8, m.num_queries,
                                                           m.max_events)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_2x2_over_gloo_on_one_card_equals_2x1(cuda, tmp_path):
+    """Four ranks on the one card (gloo) at 2 x 2 (data x model), dropout 0.1:
+    against DDP over the same two data ranks (2 x 1), which draw the same
+    masks, at ``parallel.dryrun.compare``'s CPU tolerances; the replicated
+    parameters bit for bit on all four ranks, K1 once a step on each at its
+    data shard's problems."""
+    inp = _tiny_flagship_step()
+    cfg = inp["cfg"]
+    inp = dict(inp, cfg=cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.1)))
+    path = tmp_path / "inputs.pt"
+    torch.save({"dp": dict(inp, mesh=MeshConfig(n_model=1)), "tp": inp}, path)
+    out = str(tmp_path / "out")
+    dryrun.spawn(dryrun.run_legs, 2, (str(path), out, ["dp"]), str(tmp_path),
+                 device="cuda:0", backend="gloo")
+    dryrun.spawn(dryrun.run_legs, 4, (str(path), out, ["tp"], MeshConfig(n_model=2)),
+                 str(tmp_path), device="cuda:0", backend="gloo")
+    dp, tp = dryrun.load_results(out, "dp", 2), dryrun.load_results(out, "tp", 4)
+    res = dryrun.compare(dp[0], tp, inp["state"], *dryrun.lr_and_decay(inp))
+    assert res["ok"] and res["ranks_equal"], res
+    m = inp["cfg"].model
+    for r in tp:
+        assert r["layout"] == [2, 2] and r["n_cut"] > 0
+        assert r["k1"] == 2 and tuple(r["k1_shape"]) == (m.dec_layers * 4, m.num_queries,
+                                                          m.max_events)

@@ -35,7 +35,7 @@ from sound_event_detection_transformer_tpu_torch.parallel import mesh as tmesh
 from sound_event_detection_transformer_tpu_torch.parallel.distribute import layout_shape
 from sound_event_detection_transformer_tpu_torch.parallel.dryrun import default_mesh
 from sound_event_detection_transformer_tpu_torch.parallel.optim import clip_by_global_norm_
-from sound_event_detection_transformer_tpu_torch.weights import from_flax, from_flax_part
+from sound_event_detection_transformer_tpu_torch.weights import from_flax
 
 torch.set_num_threads(2)
 P = 3  # SP-SEDT patches
@@ -180,7 +180,7 @@ def test_shard_state_dict_then_reassembly_is_the_whole_state():
 
 
 def test_jax_weights_load_into_each_model_rank():
-    """``from_flax_part`` of one JAX init loads strictly into the port's
+    """``from_flax`` of one JAX init, cut by ``shard_state_dict``, loads strictly into the port's
     model cut for each rank, and the two parts put back are ``from_flax``'s."""
     jcfg, tcfg = _configs(JConfig), _configs(TConfig)
     jmodel, _ = jbuild(jcfg)
@@ -197,7 +197,7 @@ def test_jax_weights_load_into_each_model_rank():
     for r in range(2):
         model = build_model(tcfg, device="cpu")[0]
         tmesh.shard_model(model, 2, r)
-        model.load_state_dict(from_flax_part(params, frozen, spec, r, 2), strict=True)
+        model.load_state_dict(tmesh.shard_state_dict(whole, spec, r, 2), strict=True)
         loaded.append(model.state_dict())
     for name, t in whole.items():
         dim = spec.get(name)
