@@ -196,6 +196,26 @@ nvcc for sm_90a, all started together), then:
    ranks on this card over gloo against one process, to the CPU tests'
    tolerances (TF32 off); (c) layouts the port cannot run (heads that do
    not divide, a grid that does not fill the world) raise before any step;
+4k. drives the measuring tools (``tools/*_torch.py``) at their JAX
+   counterparts' geometries, a few iterations each: ``profile_step_torch``'s
+   nine rows of the flagship step (bf16, batch 64; each row by CUDA events
+   and by device time under the profiler; ``matcher_batch`` is K1 on the
+   step's own cost in a replayed CUDA graph) and its ``--step_only`` at the
+   tool's default f32; ``capture_trace_torch`` with
+   ``trace_report_torch``'s table of the flagship step (3 traced steps), the
+   semi step and the SP-SEDT step (2 each); ``profile_semi_torch`` (6+6
+   layers, batch 64, with the teacher / pseudo-label / remainder split);
+   ``profile_spsedt_torch`` (6+6 layers, batch 200); ``bench_spsedt_bank_torch``
+   (batch 200, 8 steps a loop, the host-collated loop against the bank's);
+   ``try_remat_torch`` (each variant's first f32 step against the
+   baseline's, then the four variants timed in bf16).  Every row finite and
+   positive; K1 once per step (or per call of a row that solves the
+   matching) and K2-K4 never; each trace lists ``jv_warp_kernel`` once per
+   traced step under ``hand-written``, and each trace's device total a step
+   lies within 15 % of ``busy_ms`` of the same step; the bank loops'
+   losses equal; every remat variant's loss within 1e-5 of the baseline's,
+   its gradients within 1e-3 of each leaf's largest and the generator's
+   state after the step the same;
 5. drives long-clip ``predict`` at the flagship's full width: ResNet-50 DC5,
    3+3 layers, d 256, 8 heads, FFN 2048, 60 s clips (2,646,000 samples, 3000
    frames, 752 encoder tokens), 40 queries plus the ``dec_at`` query, batch 8,
@@ -274,7 +294,7 @@ from sound_event_detection_transformer_tpu_torch.models import (
     set_criterion,
     total_loss,
 )
-from sound_event_detection_transformer_tpu_torch.models.criterion import DenseTargets, joint_match
+from sound_event_detection_transformer_tpu_torch.models.criterion import DenseTargets
 from sound_event_detection_transformer_tpu_torch.models.torch_import import (
     torchvision_resnet_shapes,
     torchvision_to_backbone,
@@ -296,7 +316,6 @@ from sound_event_detection_transformer_tpu_torch.parallel.distribute import (
 )
 from sound_event_detection_transformer_tpu_torch.parallel.mesh import shard_model
 from sound_event_detection_transformer_tpu_torch.parallel.optim import (
-    ema_update,
     make_audio_tag_optimizer,
     param_label,
 )
@@ -305,6 +324,28 @@ from sound_event_detection_transformer_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from sound_event_detection_transformer_tpu_torch.utils.profiler import (
+    busy_ms,
+    card_line,
+    cuda_ms,
+    device_ms,
+    Recording,
+    kernel_kinds,
+    measure,
+    record,
+    semi_step_parts,
+    trace_table,
+)
+
+sys.path.append(str(Path(__file__).resolve().parent / "tools"))  # the measuring tools
+import bench_spsedt_bank_torch  # noqa: E402
+import capture_trace_torch  # noqa: E402
+import profile_semi_torch  # noqa: E402
+import profile_spsedt_torch  # noqa: E402
+import profile_step_torch  # noqa: E402
+import trace_report_torch  # noqa: E402
+import try_remat_torch  # noqa: E402
+from profile_step_torch import with_lsap_costs  # noqa: E402
 
 # One H100 SXM at its 700 W limit (NVIDIA data sheet): device memory rate, the
 # f32 rate outside the tensor cores (the type the Hungarian kernels compute
@@ -438,23 +479,8 @@ AT_STEPS = 10  # timed recipe steps
 AT_CHAIN = AT_RECIPE + ["--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP, "--epochs", "2"]
 TINY_AT = ["--dataname", "dcase", "--synthetic_smoke", "--smoke_clips", "16", "--batch_size",
            "4", "--backbone", "resnet18", "--epochs", "2", "--log", "--exp_root"]
-# kernel names by kind, the first match deciding (lower case); the rest are
-# elementwise kernels
-KERNEL_KINDS = (("copy", ("memcpy", "memset")),
-                ("layout transpose", ("nchwtonhwc", "nhwctonchw")),
-                ("convolution", ("xmma", "conv", "implicit", "cudnn", "wgrad", "dgrad", "fprop")),
-                ("matmul", ("gemm", "cublas", "cutlass")),
-                ("Adam", ("adam",)),
-                ("reduction", ("reduce", "norm")))
 SOURCE_DIR = "sound_event_detection_transformer_tpu_torch/csrc/"
 PALLAS_DIR = "sound_event_detection_transformer_tpu/ops/pallas/"
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def sm_clock_hz() -> float:
@@ -518,43 +544,6 @@ def launch_counts() -> dict:
             "K3 warp": k3.launches_warp, "K3 square": k3.launches_square,
             "K4 tensor": k4.launches_tensor, "K4 f32": k4.launches_f32,
             "K4 split": k4.launches_split}
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
-    """Mean ms of device time per call of ``fn``: ``calls`` calls are captured
-    into one CUDA graph, which is replayed between two events, so the host's
-    time to start a launch (tens of microseconds from Python, more than some
-    of these kernels run) stays out of the figure.  The launches land on the
-    capture stream because the wrappers launch on PyTorch's current stream."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / (calls * replays)
 
 
 # ------------------------------------------------- K1, K2, K3: assignment
@@ -1226,19 +1215,6 @@ def small_trainer(dev: torch.device) -> float:
     return worst
 
 
-def with_lsap_costs(call) -> tuple:
-    """``call()``, with the cost of every ``lsap`` call it makes kept:
-    (what ``call`` returns, [costs])."""
-    seen = []
-    matcher.lsap = lambda cost: (seen.append(cost.clone()), hungarian.lsap(cost))[1]
-    try:
-        out = call()
-    finally:
-        matcher.lsap = hungarian.lsap
-    torch.cuda.synchronize()
-    return out, seen
-
-
 def counted_launches(call) -> tuple:
     """``call()`` with K1's launches counted apart in eval steps
     (``train_lib.evaluate``) and elsewhere, and every LSAP cost kept:
@@ -1368,7 +1344,7 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
           f"{flops / batch_size / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms that is "
           f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, {flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} "
           f"of the dense bf16 peak ({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s) ({card})")
-    profile(lambda: step(batch, gen), 3, "train step", card, "train_step_profile.txt")
+    profile(lambda: step(batch, gen), "train step", card, "train_step_profile.txt")
     split_train_step(model, wd, cfg, state.optimizer, batch, gen, card)
     timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5, latency,
                      clock_hz)
@@ -1519,7 +1495,7 @@ def profiled_trainer_epoch(argv: list, exp_root: str, dev: torch.device, label: 
 
     def profiled_epoch(*a, **kw):
         out = []
-        profile(lambda: out.append(real_epoch(*a, **kw)), 1, label, card, file_name)
+        profile(lambda: out.append(real_epoch(*a, **kw)), label, card, file_name, once=True)
         return out[0]
 
     train_lib.train_one_epoch = profiled_epoch
@@ -1910,19 +1886,6 @@ def small_audio_tag_trainer(dev: torch.device) -> float:
     return worst
 
 
-def kernel_kinds(rows: list, calls: int) -> dict:
-    """``profile``'s rows summed by ``KERNEL_KINDS``: {kind: (ms each call,
-    launches each call)}."""
-    out = collections.defaultdict(lambda: [0.0, 0])
-    for key, us, count in rows:
-        name = key.lower()
-        kind = next((k for k, pats in KERNEL_KINDS if any(p in name for p in pats)),
-                    "elementwise and other")
-        out[kind][0] += us / calls / 1e3
-        out[kind][1] += count // calls
-    return {k: tuple(v) for k, v in sorted(out.items(), key=lambda kv: -kv[1][0])}
-
-
 def run_audio_tag_step_phase(dev: torch.device, card: str) -> dict:
     """Phase 4h: the audio-tag step at the README's AT command (``AT_RECIPE``
     at the parser's defaults: ResNet-50 DC5, 496 x 64, batch 64, 10 classes,
@@ -1981,13 +1944,13 @@ def run_audio_tag_step_phase(dev: torch.device, card: str) -> dict:
           f"{flops / bs / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms that is "
           f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, {flops / (event_ms * 1e-3) / rate:.4f} "
           f"of the dense {rate_name} peak ({rate / 1e12:.0f} TFLOP/s) ({card})")
-    rows = profile(lambda: step(x, y), 3, "audio-tag step", card, "at_step_profile.txt")
-    for kind, (ms, n) in kernel_kinds(rows, 3).items():
+    rec = profile(lambda: step(x, y), "audio-tag step", card, "at_step_profile.txt")
+    for kind, (ms, n) in kernel_kinds(rec.rows, rec.calls).items():
         print(f"audio-tag step kernels {kind}: {ms:.4f} ms in {n} launches a step ({card})")
     loss_fn = lambda: F.binary_cross_entropy_with_logits(model(x), y)
-    parts = {"forward and loss": busy_ms(loss_fn, 3)}
-    parts["backward"] = busy_ms(lambda: loss_fn().backward(), 3) - parts["forward and loss"]
-    parts["clip and Adam"] = busy_ms(optimizer.step, 3)
+    parts = {"forward and loss": busy_ms(loss_fn)}
+    parts["backward"] = busy_ms(lambda: loss_fn().backward()) - parts["forward and loss"]
+    parts["clip and Adam"] = busy_ms(optimizer.step)
     total = sum(parts.values())
     for name, ms in parts.items():
         print(f"audio-tag step part {name}: {ms:.4f} ms of device time, {ms / total:.4f} of the "
@@ -2211,7 +2174,7 @@ def run_spsedt_step_phase(dev: torch.device, card: str, latency: dict, clock_hz:
           f"{flops / bs / 1e9:.2f} GFLOP a clip with its patches; at {event_ms:.3f} ms that is "
           f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
           f"{flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} of the dense bf16 peak ({card})")
-    profile(lambda: step(batch, gen), 2, "SP-SEDT step", card, "spsedt_step_profile.txt")
+    profile(lambda: step(batch, gen), "SP-SEDT step", card, "spsedt_step_profile.txt")
     boxes = batch.targets.boxes[:, :m.num_patches]
     crop = extract_patches_device(batch.feats, boxes)
     crop_ms = device_ms(lambda: extract_patches_device(batch.feats, boxes))
@@ -2482,64 +2445,13 @@ def small_semi_trainer(dev: torch.device) -> float:
     return worst
 
 
-def busy_ms(fn, calls: int) -> float:
-    """Device time per call of ``fn`` under the profiler: its kernels' and
-    copies' time, summed (``profile``'s rows)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)) / calls / 1e3
-
-
 def split_semi_step(model, teacher, wd, cfg, optimizer, batch, flags, thr, gen, n_lab: int,
-                    card: str, calls: int = 3) -> None:
-    """The semi step's device time by part, each part profiled on its own
-    (without the mixups): the teacher's forward, the pseudo-labels, the
-    merged forward and the criterion (one joint solve), the backward (the
-    forward, criterion and backward less the forward and criterion), the
-    optimizer and the EMA."""
-    m = cfg.model
-    lab, unl = slice(0, n_lab), slice(n_lab, None)
-    tf, sf = train_lib.semi_views(batch.feats, cfg, gen)
-    teacher_forward = lambda: teacher(tf[unl], batch.pad_mask[unl], deterministic=True)
-    with torch.no_grad():
-        tea_out = teacher_forward()
-    pseudo = lambda: get_pseudo_labels(tea_out, thr, batch.targets.orig_size[unl], m.max_events)
-    targets_l = DenseTargets(*(t[lab] for t in batch.targets))
-    targets = DenseTargets(*(torch.cat([x, y]) for x, y in zip(targets_l, pseudo()[0])))
-    strong, weak, unlabel = flags
-
-    def forward_criterion():
-        out = model(torch.cat([tf[lab], sf[unl]]), torch.cat([batch.pad_mask[lab],
-                                                             batch.pad_mask[unl]]),
-                    deterministic=False, generator=gen)
-        mres, aux = joint_match(out, targets, cfg.loss, cfg.train.focal_loss)
-        rows = lambda r: {k: (v[:, r] if k.startswith("aux_") else v[r]) for k, v in out.items()}
-        cut = lambda r: (type(mres)(*(x[r] for x in mres)), type(aux)(*(x[:, r] for x in aux)))
-        loss = 0.0
-        for r, t, s, w in ((lab, targets_l, strong[lab], weak[lab]),
-                           (slice(n_lab, None), DenseTargets(*(x[n_lab:] for x in targets)),
-                            unlabel[unl], None)):
-            losses, _ = set_criterion(rows(r), t, s, w, m, cfg.loss, fl=cfg.train.focal_loss,
-                                      precomputed=cut(r))
-            loss = loss + total_loss(losses, wd)
-        return loss
-
-    with torch.no_grad():
-        parts = {"teacher forward": busy_ms(teacher_forward, calls),
-                 "pseudo-labels": busy_ms(pseudo, calls)}
-    with torch.enable_grad():
-        parts["merged forward and criterion"] = busy_ms(forward_criterion, calls)
-        parts["backward"] = (busy_ms(lambda: forward_criterion().backward(), calls)
-                             - parts["merged forward and criterion"])
-    parts["clip and AdamW"] = busy_ms(optimizer.step, calls)
-    parts["EMA"] = busy_ms(lambda: ema_update(teacher.parameters(), model.parameters(),
-                                              cfg.train.ema_decay), calls)
+                    card: str) -> None:
+    """The semi step's device time by part (``utils.profiler.semi_step_parts``
+    on the step's own views, without the mixups)."""
+    views = train_lib.semi_views(batch.feats, cfg, gen)
+    parts = semi_step_parts(model, teacher, wd, cfg, optimizer, views, batch, flags, thr, gen,
+                            n_lab, busy_ms)
     total = sum(parts.values())
     for name, ms in parts.items():
         print(f"semi step part {name}: {ms:.4f} ms of device time, {ms / total:.4f} of the "
@@ -2687,7 +2599,7 @@ def run_semi_step_phase(dev: torch.device, card: str, latency: dict, clock_hz: f
           f"forwards, the backward), {flops / bs / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms "
           f"that is {flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
           f"{flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} of the dense bf16 peak ({card})")
-    profile(run, 3, "semi step", card, "semi_step_profile.txt")
+    profile(run, "semi step", card, "semi_step_profile.txt")
     split_semi_step(model, teacher, wd, cfg, state.optimizer, batch, flags, thr, gen, n_lab, card)
     timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 3, latency,
                      clock_hz)
@@ -3169,6 +3081,181 @@ def run_tensor_parallel_phase(dev: torch.device, card: str, clock_hz: float, lat
             "launches_2x2": [x["k1"] for x in got4], "timing_2x2": timing["2x2"], "err": k1_err}
 
 
+# ----------------------------------------------------------------- tools
+
+# phase 4k: each measuring tool's functions at its JAX counterpart's geometry,
+# with few iterations (the tools' defaults take 5-20)
+TOOLS_ITERS = 3  # timed calls of each row or step
+TOOLS_TRACE_STEPS = 3  # traced flagship steps; 2 of the semi and SP-SEDT steps
+TOOLS_BANK_REPEATS = 1  # timed passes of each SP-SEDT loop
+TOOLS_BUSY_TOL = 0.15  # a trace's device total against busy_ms of the same step
+
+
+def tools_counts(total: dict) -> dict:
+    """The counts since the last reset, added into ``total``."""
+    counts = launch_counts()
+    for k in ("K1", "K2", "K3", "K4"):
+        total[k] = total.get(k, 0) + counts[k]
+    return counts
+
+
+def check_tool_launches(label: str, counts: dict, steps: int) -> None:
+    assert counts["K1"] == steps and counts["K2"] == counts["K3"] == counts["K4"] == 0, (
+        f"{label}: K1 must launch once a step ({steps}) and K2-K4 never: {counts}")
+
+
+def check_tool_reading(label: str, r) -> None:
+    assert math.isfinite(r.ms) and r.ms > 0 and r.device_ms is not None, (label, r)
+    assert math.isfinite(r.device_ms) and r.device_ms > 0, (label, r)
+
+
+def traced_steps(run, out: str, steps: int, card: str, label: str, busy: float) -> dict:
+    """``capture_trace_torch.capture`` of ``steps`` steps (one warm-up) and
+    ``trace_report_torch``'s table of it: ``jv_warp_kernel`` (K1) once a
+    traced step, counted under ``hand-written`` and by name, and the
+    trace's device total a step within ``TOOLS_BUSY_TOL`` of ``busy``
+    (``busy_ms`` of the same step)."""
+    shutil.rmtree(out, ignore_errors=True)
+    path = capture_trace_torch.capture(run, out, steps, warmup=1)
+    table = trace_table(path, top=12)
+    raw = trace_table(path, raw=True, top=100000)
+    kinds = collections.Counter()
+    jv = 0
+    for plane in table["planes"].values():
+        kinds.update({k: n for k, _, _, n in plane["rows"]})
+    for plane in raw["planes"].values():
+        jv += sum(n for k, _, _, n in plane["rows"] if "jv_warp_kernel" in k)
+    assert kinds["hand-written"] == jv == steps, (label, kinds, jv)
+    total = sum(p["total_ms"] for p in table["planes"].values()) / steps
+    print(f"{label} trace ({Path(path).name}): {steps} steps, device {total:.3f} ms a step "
+          f"in the trace, jv_warp_kernel {jv} times under hand-written ({card})")
+    for line in trace_report_torch.report_lines(table):
+        print("  " + line)
+    for plane, p in raw["planes"].items():
+        print(f"  {plane}, the 10 largest kernels by name:")
+        for name, ms, share, count in p["rows"][:10]:
+            print(f"    {ms / steps:9.4f} ms a step {100 * share:5.1f}% x{count // steps:<5d} "
+                  f"{name[:120]}")
+    assert abs(total - busy) <= TOOLS_BUSY_TOL * busy, (label, total, busy)
+    print(f"{label} trace: {total:.3f} ms a step against busy_ms {busy:.3f} ms, "
+          f"{total / busy - 1:+.4f} ({card})")
+    return {"device_ms_per_step": total, "path": path}
+
+
+def run_tools_phase(dev: torch.device, card: str) -> dict:
+    """Phase 4k: the measuring tools (``tools/*_torch.py``) on the card at
+    their JAX counterparts' geometries: ``profile_step_torch``'s rows of the
+    flagship step (bf16, batch 64; and its ``--step_only`` at the tool's
+    default f32), ``capture_trace_torch`` + ``trace_report_torch`` of the
+    flagship, semi and SP-SEDT steps, ``profile_semi_torch`` (6+6 layers,
+    batch 64, ``--components``), ``profile_spsedt_torch`` (6+6, batch 200),
+    ``bench_spsedt_bank_torch`` (batch 200, 8 steps a loop) and
+    ``try_remat_torch`` (its f32 check first, then the four variants timed
+    in bf16).
+    Every row finite and positive, K1 once a step (a row's call) and K2-K4
+    never, the traces' K1 once a traced step and each trace's device total
+    within 15 % of ``busy_ms``, the bank loops' losses equal, every remat
+    variant the baseline's step.  Returns the phase's launch counts."""
+    total = {}
+    n = TOOLS_ITERS
+    t0 = time.perf_counter()
+    lap = lambda label: print(f"phase 4k {label}: {time.perf_counter() - t0:.1f} s from the "
+                              f"phase's start")
+    f32 = profile_step_torch.train_setup(profile_step_torch.step_config(64), dev)
+    reset_launch_counts()  # each tool's path: counts from here ...
+    checked = try_remat_torch.check_variants(f32)
+    check_tool_launches("try_remat_torch check", tools_counts(total),  # ... to here
+                        len(try_remat_torch.VARIANTS))
+    for v, d in checked.items():
+        print(f"try_remat_torch {v}: first f32 step as baseline's: loss {d['loss']:.3g} of it, "
+              f"gradients {d['grad']:.3g} of their leaf's largest ({d['leaf']}), the same "
+              f"generator state")
+    reset_launch_counts()
+    r = profile_step_torch.step_rows(f32, n, step_only=True)["train_step"]
+    check_tool_launches("profile_step_torch --step_only", tools_counts(total), r.calls)
+    check_tool_reading("train_step f32", r)
+    print("profile_step_torch --step_only (the tool's default f32; TF32 convolutions "
+          f"{torch.backends.cudnn.allow_tf32}, matmuls {torch.backends.cuda.matmul.allow_tf32})")
+    print(profile_step_torch.format_row("train_step", r, 64, card))
+    del f32
+    torch.cuda.empty_cache()
+    lap("try_remat_torch's check and profile_step_torch --step_only")
+
+    cfg = profile_step_torch.step_config(64, "bfloat16")
+    s = profile_step_torch.train_setup(cfg, dev)
+    n_params = sum(p.numel() for p in s.model.parameters())
+    print(f"tools: profile_step_torch, {describe(cfg, 64, n_params)}")
+    reset_launch_counts()
+    rows = profile_step_torch.step_rows(s, n)
+    check_tool_launches("profile_step_torch", tools_counts(total),
+                        sum(rows[k].calls for k in profile_step_torch.K1_ROWS) + 1)
+    print(f"profile_step_torch batch=64 dtype=bfloat16 dropout={cfg.model.dropout} iters={n} "
+          f"({card})")
+    for name, r in rows.items():
+        if r.calls:
+            check_tool_reading(name, r)
+        assert math.isfinite(r.ms) and r.ms > 0 and r.device_ms > 0, (name, r)
+        print(profile_step_torch.format_row(name, r, 64, card))
+    flagship = traced_steps(s.run, "build/tools_trace/flagship", TOOLS_TRACE_STEPS, card,
+                            "flagship step", rows["train_step"].device_ms)
+    reset_launch_counts()
+    timed = try_remat_torch.time_variants(s, n)
+    check_tool_launches("try_remat_torch", tools_counts(total),
+                        sum(r.calls for r, _ in timed.values()))
+    for v, (r, peak) in timed.items():
+        check_tool_reading(v, r)
+        print(f"try_remat_torch {v:9s}: {r.ms:.3f} ms/step ({64 / r.ms * 1e3:.0f} clips/s), "
+              f"device {r.device_ms:.3f} ms, peak memory {peak / 2**30:.3f} GiB ({card})")
+    del s
+    torch.cuda.empty_cache()
+    lap("profile_step_torch, the flagship trace and try_remat_torch's timing")
+
+    scfg = profile_semi_torch.semi_config()
+    ss = profile_semi_torch.semi_setup(scfg, dev)
+    reset_launch_counts()
+    r = measure(ss.run, n, dev)
+    check_tool_launches("profile_semi_torch", tools_counts(total), r.calls)
+    check_tool_reading("semi step", r)
+    print(f"profile_semi_torch batch=64 enc/dec=6/6 dtype=bfloat16: {r.ms:.3f} ms "
+          f"({64 / r.ms * 1e3:.0f} clips/s); device {r.device_ms:.3f} ms ({card})")
+    for name, ms in profile_semi_torch.components(ss, r).items():
+        assert math.isfinite(ms) and ms > 0, (name, ms)
+        print(f"  {name}: {ms:.3f} ms of device time ({card})")
+    traced_steps(ss.run, "build/tools_trace/semi", 2, card, "semi step", r.device_ms)
+    del ss
+    torch.cuda.empty_cache()
+    lap("profile_semi_torch and its trace")
+
+    pcfg = profile_spsedt_torch.spsedt_config()
+    sp = profile_spsedt_torch.spsedt_setup(pcfg, dev)
+    reset_launch_counts()
+    r = measure(sp.run, n, dev)
+    check_tool_launches("profile_spsedt_torch", tools_counts(total), r.calls)
+    check_tool_reading("SP-SEDT step", r)
+    print(f"profile_spsedt_torch batch=200 patches=10 E=6 D=6 dtype=bfloat16: {r.ms:.3f} ms "
+          f"({200 / r.ms * 1e3:.0f} clips/s); device {r.device_ms:.3f} ms ({card})")
+    traced_steps(sp.run, "build/tools_trace/spsedt", 2, card, "SP-SEDT step", r.device_ms)
+    lap("profile_spsedt_torch and its trace")
+
+    ds = bench_spsedt_bank_torch.make_dataset(pcfg, 4 * bench_spsedt_bank_torch.B)
+    reset_launch_counts()
+    res = bench_spsedt_bank_torch.bench(sp, ds, bench_spsedt_bank_torch.STEPS,
+                                        TOOLS_BANK_REPEATS)
+    check_tool_launches("bench_spsedt_bank_torch", tools_counts(total), res["steps"])
+    clips = bench_spsedt_bank_torch.STEPS * bench_spsedt_bank_torch.B
+    print(f"bench_spsedt_bank_torch: losses equal over {bench_spsedt_bank_torch.STEPS} steps "
+          f"({res['losses'][0][0]:.4f} .. {res['losses'][0][-1]:.4f}) ({card})")
+    for name, ts in res["seconds"].items():
+        assert all(math.isfinite(t) and t > 0 for t in ts), (name, ts)
+        print(f"  {name}: {min(ts):.3f} s for {clips} clips, {clips / min(ts):.1f} clips/s "
+              f"({card})")
+    del sp, ds
+    torch.cuda.empty_cache()
+    lap("bench_spsedt_bank_torch")
+
+    return {"counts": total, "flagship_trace_ms": flagship["device_ms_per_step"]}
+
+
 # --------------------------------------------------------------- predict
 
 
@@ -3302,46 +3389,29 @@ def run_long_predict(cfg: SEDTConfig, model, dev: torch.device, card: str) -> di
         }
         for name, fn in parts.items():
             print(f"long predict part {name}: {cuda_ms(fn, 5, warmup=1):.4f} ms/batch ({card})")
-    profile(lambda: infer(waves), 3, "long predict", card, "long_predict_profile.txt")
+    profile(lambda: infer(waves), "long predict", card, "long_predict_profile.txt")
     return {sq: n for (sq, _), n in seen.items()}
 
 
 # --------------------------------------------------------------- profile
 
 
-def profile(fn, calls: int, label: str, card: str, file_name: str) -> list:
-    """A torch.profiler table of ``calls`` calls of ``fn``, written to the
-    output directory, and the device's busy and idle share of them; returns
-    the device rows (name, µs, count over the calls)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): an operator's row repeats
-    # the device time of the kernels it launched, and a user annotation on the
-    # device's timeline (the optimizer's step) spans kernels already counted
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)), key=lambda r: -r[1])
-    busy_us = sum(r[1] for r in rows)
-    print(f"profiled {calls} x {label}: device busy {busy_us / calls / 1e3:.3f} ms each in "
-          f"{sum(r[2] for r in rows) // calls} kernels and copies, "
-          f"{wall_us / calls / 1e3:.3f} ms each wall under the profiler, idle share "
-          f"{1 - busy_us / wall_us:.4f} ({card})")
-    lines = [f"{t / calls / 1e3:10.4f} ms each {c // calls:6d} each  {k[:140]}"
-             for k, t, c in rows]
+def profile(fn, label: str, card: str, file_name: str, once: bool = False) -> Recording:
+    """``utils.profiler.record`` of ``fn``: the device's busy and idle share
+    of the window printed, its table written to the output directory."""
+    rec = record(fn, once)
+    n = rec.calls
+    print(f"profiled {n} x {label}: device busy {rec.busy_ms:.3f} ms each in "
+          f"{sum(r[2] for r in rec.rows) // n} kernels and copies, {rec.wall_ms / n:.3f} ms "
+          f"each wall under the profiler, idle share {1 - rec.busy_ms * n / rec.wall_ms:.4f} "
+          f"({card})")
+    lines = [f"{t / n / 1e3:10.4f} ms each {c // n:6d} each  {k[:140]}" for k, t, c in rec.rows]
     for line in lines[:12]:
         print("  " + line)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
-    (out_dir / file_name).write_text(
-        f"{card}\n" + "\n".join(lines) + "\n\n"
-        + prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-    return rows
+    (out_dir / file_name).write_text(f"{card}\n" + "\n".join(lines) + "\n\n" + rec.table)
+    return rec
 
 
 def split_eval_step(model, cfg, batch_cpu, valid, card: str) -> None:
@@ -3475,7 +3545,7 @@ def main() -> None:
     time_k1_shapes(dev, card, clock_hz)
     shapes = {"K1": list(cost.shape)}
     split_eval_step(model, cfg, batches[0], valid, card)
-    profile(lambda: step(batches[0], valid), 3, "eval step", card, "eval_step_profile.txt")
+    profile(lambda: step(batches[0], valid), "eval step", card, "eval_step_profile.txt")
     del model, step
 
     # 4b. the flagship train step, then the fine-tune and augmented steps
@@ -3518,6 +3588,9 @@ def main() -> None:
     # 4j. the train step under tensor parallel: 1 x 2 and the dryrun at 2 x 2 (gloo)
     tp = run_tensor_parallel_phase(dev, card, clock_hz, latency, errs["K1"])
     torch.cuda.empty_cache()
+
+    # 4k. the measuring tools at their JAX counterparts' geometries
+    tools = run_tools_phase(dev, card)
 
     # 5. long-clip predict at the flagship's width
     long_cfg = long_config(cfg, LONG_SECONDS, int(LONG_SECONDS * 50), num_queries=40,
@@ -3661,7 +3734,8 @@ def main() -> None:
         # the audio-tag step and trainer run no kernel of the four (asserted above)
         kernel.update(route="cuda", parity="ok",
                       launches_audio_tag_step=at_step[kernel["name"].split()[0]],
-                      launches_audio_tag_chain=chain["audio_tag"][kernel["name"].split()[0]])
+                      launches_audio_tag_chain=chain["audio_tag"][kernel["name"].split()[0]],
+                      launches_tools=tools["counts"][kernel["name"].split()[0]])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

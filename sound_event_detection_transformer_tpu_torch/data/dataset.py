@@ -307,8 +307,11 @@ def collate(
     """[(features [T, F], encoded labels), ...] -> Batch on the CPU, with an
     all-False pad mask (clips come at full length).  Rows flagged in
     ``unlabel_flags`` are neither strong nor weak.  Waveforms [N] give feats
-    [B, N, 1] and a [B, 1] mask: the step's frontend makes the real one."""
-    feats = torch.from_numpy(np.stack([s[0] for s in samples]).astype(np.float32)[..., None])
+    [B, N, 1] and a [B, 1] mask: the step's frontend makes the real one.  The
+    features have a contiguous tensor's strides, as the feature bank's rows
+    do, so that the card runs the same algorithms on either (a numpy axis
+    added by ``None`` has stride 0)."""
+    feats = torch.from_numpy(np.stack([s[0] for s in samples]).astype(np.float32)).unsqueeze(-1)
     frames = feats.shape[1] if feats.dim() == 4 else 1
     return _batch(feats, [s[1] for s in samples], max_events, seconds, indexes, unlabel_flags,
                   frames)

@@ -1,18 +1,40 @@
-"""Profiling hooks: ``torch.profiler`` traces, named ranges and step timing.
+"""Profiling hooks and timers: ``torch.profiler`` traces, named ranges, step
+timing, device times and a report of a trace.
 
 Counterpart of the JAX package's ``utils/profiler.py``.  ``trace`` writes a
 Chrome trace (viewable in Perfetto or TensorBoard) of the code inside it;
 ``annotate`` names a range on that timeline; ``StepTimer`` keeps the
 data-time and batch-time meters on the host clock.
+
+The timers the measuring tools (``tools/*_torch.py``) and ``chip_smoke.py``
+share live here too: ``cuda_ms`` (CUDA events around back-to-back calls: the
+host's issue time when the path is host-bound), ``device_ms`` (a replayed
+CUDA graph: a kernel's own time), ``record`` and ``busy_ms`` (the kernels'
+and copies' rows and time under the profiler: a path's device time),
+``measure`` (both readings of one function, or the host clock on the CPU),
+``kernel_kinds`` and ``trace_table`` (device time by kernel kind, from the
+profiler's rows or from a written trace), ``card_line`` and
+``semi_step_parts``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import glob
+import gzip
+import json
+import math
+import os
+import subprocess
 import time
-from typing import Iterator
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 
+from ..engine import get_pseudo_labels
+from ..models import set_criterion, total_loss
+from ..models.criterion import DenseTargets, joint_match
+from ..parallel.optim import ema_update
 from .meters import AverageMeter
 
 
@@ -61,3 +83,334 @@ class StepTimer:
             f"data_time:{self.data_time.val:.3f}({self.data_time.avg:.3f}) "
             f"batch_time:{self.batch_time.val:.3f}({self.batch_time.avg:.3f})"
         )
+
+
+# ---------------------------------------------------------------- timers
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them (the first card)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls, with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Mean ms of device time per call of ``fn``: ``calls`` calls are captured
+    into one CUDA graph, which is replayed between two events, so the host's
+    time to start a launch (tens of microseconds from Python, more than some
+    of these kernels run) stays out of the figure.  The launches land on the
+    capture stream because the wrappers launch on PyTorch's current stream."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+# the least window ``record`` keeps: the profiler now and then drops a run of
+# device records, which cost a window of a few kernels all of them and one
+# profiled SP-SEDT step 8 % of its time, so a window holds at least
+# ``LEAST_CALLS`` calls and ``LEAST_WINDOW_MS`` of wall time (a longer floor
+# costs the profiler's own processing of the host's events more than it runs)
+LEAST_CALLS = 3
+LEAST_WINDOW_MS = 50.0
+
+
+class Recording(NamedTuple):
+    """The device's own records of ``calls`` calls under the profiler:
+    ``rows`` (kernel or copy name, µs, count) summed over the calls, the
+    largest first; ``wall_ms`` the calls' wall time; ``table`` the
+    profiler's table of the window by device time."""
+
+    rows: List[tuple]
+    wall_ms: float
+    calls: int
+    table: str
+
+    @property
+    def busy_ms(self) -> float:
+        """Device time per call."""
+        return sum(r[1] for r in self.rows) / self.calls / 1e3
+
+
+def record(fn, once: bool = False) -> Recording:
+    """Calls of ``fn`` under the profiler after a warm-up cycle of as many,
+    its device rows kept: kernels and copies (an operator's row repeats the
+    device time of the kernels it launched, and a user annotation on the
+    device's timeline spans kernels already counted).  The window holds at
+    least ``LEAST_CALLS`` calls and ``LEAST_WINDOW_MS`` of wall time, judged
+    by one call first; with ``once`` (a call that may run only once, as a
+    trainer's epoch) it holds one call and the warm-up cycle is empty."""
+    calls = 1
+    if not once:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        once_ms = (time.perf_counter() - t0) * 1e3
+        calls = max(LEAST_CALLS, math.ceil(LEAST_WINDOW_MS / max(once_ms, 1e-3)))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    warm_then_record = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=warm_then_record) as prof:
+        for cycle in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(0 if once and not cycle else calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    averages = prof.key_averages()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)), key=lambda r: -r[1])
+    return Recording(rows, wall_ms, calls,
+                     averages.table(sort_by="self_device_time_total", row_limit=40))
+
+
+def busy_ms(fn) -> float:
+    """Device time per call of ``fn`` under the profiler (:func:`record`'s
+    least window): its kernels' and copies' time, summed."""
+    return record(fn).busy_ms
+
+
+def host_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` on the host clock (the CPU: no device)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+class Reading(NamedTuple):
+    """Two readings of one function: ``ms`` per call (CUDA events around
+    back-to-back calls on the card, the host clock on the CPU) and
+    ``device_ms`` per call (``busy_ms``, or ``device_ms`` with ``graph``;
+    None on the CPU, which has no device time); ``calls`` is how many calls
+    the two took."""
+
+    ms: float
+    device_ms: Optional[float]
+    calls: int
+
+
+def measure(fn, iters: int, device: torch.device, warmup: int = 3,
+            graph: bool = False) -> Reading:
+    """Both readings of ``fn`` on ``device`` (see :class:`Reading`).  A path
+    that the host holds back reads more by ``ms`` than by ``device_ms``."""
+    calls = [0]
+
+    def counted():
+        calls[0] += 1
+        return fn()
+
+    if device.type != "cuda":
+        return Reading(host_ms(counted, iters, warmup), None, calls[0])
+    ms = cuda_ms(counted, iters, warmup)
+    dev_ms = device_ms(counted) if graph else busy_ms(counted)
+    return Reading(ms, dev_ms, calls[0])
+
+
+def card_of(device: torch.device) -> str:
+    """What a tool prints beside each time: the card's line, or that the
+    times are the host's."""
+    return card_line() if device.type == "cuda" else "CPU, host clock, no device time"
+
+
+# -------------------------------------------------------- time by kernel kind
+
+# kernel names by kind, the first match deciding (lower case); the rest are
+# elementwise kernels.  The port's own kernels come first: ``csrc/*.cu``.
+# cuDNN's and cuBLAS's Hopper kernels both say ``xmma`` (``sm90_xmma_fprop_
+# implicit_gemm...``, ``sm90_xmma_gemm...``), so a convolution is told by its
+# pass or its library and ``xmma`` alone means a matrix product.  The names
+# cannot tell every case: cuDNN runs some 1x1 convolutions as plain GEMM
+# kernels (``sm90_xmma_gemm_..._cublas``), and those count as matmuls.
+KERNEL_KINDS = (("hand-written", ("jv_warp_kernel", "jv_block_kernel", "jv_square_kernel",
+                                  "flash_mma_kernel", "flash_combine_kernel", "flash_kernel")),
+                ("copy", ("memcpy", "memset")),
+                ("layout transpose", ("nchwtonhwc", "nhwctonchw")),
+                ("convolution", ("conv", "implicit", "cudnn", "wgrad", "dgrad", "fprop")),
+                ("matmul", ("gemm", "cublas", "cutlass", "xmma")),
+                ("Adam", ("adam",)),
+                ("reduction", ("reduce", "norm")))
+OTHER_KIND = "elementwise and other"
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a kernel by its name (``KERNEL_KINDS``)."""
+    name = name.lower()
+    return next((k for k, pats in KERNEL_KINDS if any(p in name for p in pats)), OTHER_KIND)
+
+
+def kernel_kinds(rows: list, calls: int) -> dict:
+    """Device rows ``(name, µs, count)`` over ``calls`` calls summed by
+    ``KERNEL_KINDS``: {kind: (ms each call, launches each call)}."""
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for key, us, count in rows:
+        kind = kernel_kind(key)
+        out[kind][0] += us / calls / 1e3
+        out[kind][1] += count // calls
+    return {k: tuple(v) for k, v in sorted(out.items(), key=lambda kv: -kv[1][0])}
+
+
+# ------------------------------------------------------------ Chrome traces
+
+# the device's own events in torch's Chrome trace; ``gpu_user_annotation``
+# spans cover the kernels of an ``annotate`` range and would count them twice
+DEVICE_CATEGORIES = {"kernel": None, "gpu_memcpy": "copy", "gpu_memset": "copy"}
+HOST_CATEGORY = "cpu_op"
+
+
+def find_trace(trace_dir: str) -> str:
+    """The newest ``*.pt.trace.json`` (or ``.json.gz``) under ``trace_dir``."""
+    paths = [p for pat in ("*.pt.trace.json", "*.pt.trace.json.gz")
+             for p in glob.glob(os.path.join(trace_dir, "**", pat), recursive=True)]
+    if not paths:
+        raise FileNotFoundError(f"no *.pt.trace.json under {trace_dir}")
+    return max(paths, key=os.path.getmtime)
+
+
+def _trace_events(path: str) -> List[dict]:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        data = json.load(f)
+    return data["traceEvents"] if isinstance(data, dict) else data
+
+
+def _union_us(spans: List[tuple]) -> float:
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def trace_table(path: str, raw: bool = False, top: int = 30, all_planes: bool = False) -> Dict:
+    """Device time of a ``torch.profiler`` Chrome trace by kernel kind (by
+    kernel name with ``raw``), per device and stream: the counterpart of
+    ``tools/xplane_report.py``'s table.  Only ``kernel``, ``gpu_memcpy`` and
+    ``gpu_memset`` events count (copies are the kind ``copy``); with
+    ``all_planes`` the host's ``cpu_op`` events count too, as the plane
+    ``host`` (they nest, so their shares overlap).  ``ts`` and ``dur`` are
+    µs.
+
+    Returns ``{"path", "window_ms", "busy_ms", "planes": {plane: {"total_ms",
+    "rows": [(name, ms, share of the plane, count), ...]}}}``, the rows the
+    ``top`` largest; ``window_ms`` spans every timed event, ``busy_ms`` is the
+    union of the device events over it.  Raises when no plane has an event
+    (the trace saw no device without ``all_planes``)."""
+    events = [e for e in _trace_events(path) if e.get("ph") == "X" and "dur" in e]
+    planes: Dict[str, Dict[str, list]] = {}
+    device_spans = []
+    for e in events:
+        cat = e.get("cat")
+        if cat in DEVICE_CATEGORIES:
+            args = e.get("args", {})
+            plane = (f"GPU {args.get('device', e.get('pid'))} stream "
+                     f"{args.get('stream', e.get('tid'))}")
+            key = e["name"] if raw else (DEVICE_CATEGORIES[cat] or kernel_kind(e["name"]))
+            device_spans.append((e["ts"], e["ts"] + e["dur"]))
+        elif all_planes and cat == HOST_CATEGORY:
+            plane, key = "host", e["name"]
+        else:
+            continue
+        row = planes.setdefault(plane, {}).setdefault(key, [0.0, 0])
+        row[0] += e["dur"]
+        row[1] += 1
+    if not planes:
+        cats = sorted({e.get("cat", "?") for e in events})
+        raise RuntimeError(f"no device events found in {path}; categories = {cats}")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    out = {"path": path, "window_ms": (t1 - t0) / 1e3, "busy_ms": _union_us(device_spans) / 1e3,
+           "planes": {}}
+    for plane, rows in sorted(planes.items()):
+        total = sum(us for us, _ in rows.values())
+        ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]
+        out["planes"][plane] = {
+            "total_ms": total / 1e3,
+            "rows": [(k, us / 1e3, us / total if total else 0.0, n) for k, (us, n) in ranked]}
+    return out
+
+
+# ------------------------------------------------------- the semi step's parts
+
+
+def semi_step_parts(model, teacher, weight_dict: Dict[str, float], cfg, optimizer, views,
+                    batch, flags, thr: torch.Tensor, gen, n_lab: int,
+                    timer: Callable[[Callable], float]) -> Dict[str, float]:
+    """The mean-teacher step's time by part, each part timed on its own by
+    ``timer(fn)`` (``busy_ms`` on the card), without the mixups: the
+    teacher's forward, the pseudo-labels, the merged forward and the
+    criterion (one joint solve), the backward (the forward, criterion and
+    backward less the forward and criterion), the optimizer and the EMA.
+    ``views`` are the step's (teacher, student) inputs; ``flags`` the
+    batch's (strong, weak, unlabel) rows, labeled ones first."""
+    m = cfg.model
+    lab, unl = slice(0, n_lab), slice(n_lab, None)
+    tf, sf = views
+    teacher_forward = lambda: teacher(tf[unl], batch.pad_mask[unl], deterministic=True)
+    with torch.no_grad():
+        tea_out = teacher_forward()
+    pseudo = lambda: get_pseudo_labels(tea_out, thr, batch.targets.orig_size[unl], m.max_events)
+    targets_l = DenseTargets(*(t[lab] for t in batch.targets))
+    targets = DenseTargets(*(torch.cat([x, y]) for x, y in zip(targets_l, pseudo()[0])))
+    strong, weak, unlabel = flags
+
+    def forward_criterion():
+        out = model(torch.cat([tf[lab], sf[unl]]), torch.cat([batch.pad_mask[lab],
+                                                             batch.pad_mask[unl]]),
+                    deterministic=False, generator=gen)
+        mres, aux = joint_match(out, targets, cfg.loss, cfg.train.focal_loss)
+        rows = lambda r: {k: (v[:, r] if k.startswith("aux_") else v[r]) for k, v in out.items()}
+        cut = lambda r: (type(mres)(*(x[r] for x in mres)), type(aux)(*(x[:, r] for x in aux)))
+        loss = 0.0
+        for r, t, s, w in ((lab, targets_l, strong[lab], weak[lab]),
+                           (unl, DenseTargets(*(x[n_lab:] for x in targets)), unlabel[unl],
+                            None)):
+            losses, _ = set_criterion(rows(r), t, s, w, m, cfg.loss, fl=cfg.train.focal_loss,
+                                      precomputed=cut(r))
+            loss = loss + total_loss(losses, weight_dict)
+        return loss
+
+    with torch.no_grad():
+        parts = {"teacher forward": timer(teacher_forward), "pseudo-labels": timer(pseudo)}
+    with torch.enable_grad():
+        parts["merged forward and criterion"] = timer(forward_criterion)
+        parts["backward"] = (timer(lambda: forward_criterion().backward())
+                             - parts["merged forward and criterion"])
+    parts["clip and AdamW"] = timer(optimizer.step)
+    parts["EMA"] = timer(lambda: ema_update(teacher.parameters(), model.parameters(),
+                                            cfg.train.ema_decay))
+    return parts

@@ -33,9 +33,15 @@ tolerances, the ranks' parameters bit for bit and K1 once a step on each
 rank.  Tensor parallel: the tiny train step with dropout 0.1 at (1 x 2)
 ranks on the one card (gloo) against one process, to the CPU tolerances,
 the replicated parameters bit for bit and K1 once a step on each rank at
-the whole batch's problems.
+the whole batch's problems.  The measuring tools at the tiny size:
+``profile_step_torch``'s rows with both readings and K1 once per call of a
+row that solves the matching; ``trace_report_torch`` on
+``capture_trace_torch``'s trace, ``jv_warp_kernel`` once per traced step
+under ``hand-written``.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -529,3 +535,55 @@ def test_tensor_parallel_2x2_over_gloo_on_one_card_equals_2x1(cuda, tmp_path):
         assert r["layout"] == [2, 2] and r["n_cut"] > 0
         assert r["k1"] == 2 and tuple(r["k1_shape"]) == (m.dec_layers * 4, m.num_queries,
                                                           m.max_events)
+
+
+@pytest.mark.gpu
+def test_profile_step_and_trace_report_on_the_card(cuda, tmp_path, capsys):
+    """The tools at the tiny size on the card: every measured row of
+    ``profile_step_torch`` with a positive time by CUDA events and by device
+    time, K1 once per call of the rows that solve the matching (and once for
+    the step that hands ``matcher_batch`` its cost); then
+    ``capture_trace_torch``'s trace of 3 steps through
+    ``trace_report_torch``: ``jv_warp_kernel`` 3 times, under
+    ``hand-written``, and a busy window."""
+    sys.path.append(str(Path(__file__).resolve().parents[1] / "tools"))
+    import capture_trace_torch
+    import profile_step_torch
+    import trace_report_torch
+
+    s = profile_step_torch.train_setup(SEDTConfig.tiny_test(), cuda)
+    chip_smoke.reset_launch_counts()
+    rows = profile_step_torch.step_rows(s, iters=2)
+    counts = chip_smoke.launch_counts()
+    assert counts["K1"] == sum(rows[k].calls for k in profile_step_torch.K1_ROWS) + 1, counts
+    for name, r in rows.items():
+        assert r.device_ms is not None, name
+        if r.calls:
+            assert r.ms > 0 and r.device_ms > 0, (name, r)
+    capture_trace_torch.capture(s.run, str(tmp_path / "trace"), iters=3, warmup=1)
+    table = trace_report_torch.main([str(tmp_path / "trace"), "--top", "50"])
+    kinds = {k: n for p in table["planes"].values() for k, _, _, n in p["rows"]}
+    assert kinds["hand-written"] == 3, kinds
+    raw = trace_report_torch.main([str(tmp_path / "trace"), "--raw", "--top", "100000"])
+    assert sum(n for p in raw["planes"].values() for k, _, _, n in p["rows"]
+               if "jv_warp_kernel" in k) == 3
+    assert 0 < table["busy_ms"] <= table["window_ms"]
+    assert "== plane: GPU" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_record_keeps_its_least_window(cuda):
+    """``utils.profiler.record``: at least ``LEAST_CALLS`` calls after the
+    warm-up cycle, enough of a short call to fill about ``LEAST_WINDOW_MS``,
+    the device's rows only; with ``once`` one call."""
+    from sound_event_detection_transformer_tpu_torch.utils import profiler
+
+    x = torch.ones(1 << 16, device=cuda)
+    rec = profiler.record(lambda: x.add_(1))
+    assert rec.calls > profiler.LEAST_CALLS and rec.wall_ms > 0, rec.calls
+    assert rec.rows and rec.busy_ms > 0
+    assert all("add" in name.lower() or "elementwise" in name.lower()
+               for name, _, _ in rec.rows), rec.rows
+    long_call = lambda: torch.cuda._sleep(int(2e8))  # ~0.1 s of spinning on the card
+    assert profiler.record(long_call).calls == profiler.LEAST_CALLS
+    assert profiler.record(lambda: x.add_(1), once=True).calls == 1

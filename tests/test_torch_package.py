@@ -1,7 +1,9 @@
-"""Boundaries of the PyTorch port: it imports nothing of JAX, of the JAX
+"""Boundaries of the PyTorch port: it (its package, root scripts and
+measuring tools ``tools/*_torch.py``) imports nothing of JAX, of the JAX
 package, of ``tools/`` (whose wav writer imports the JAX package's config)
 or pandas (which the card's machine lacks), at module level or inside a
-function; its entry points never
+function; every measuring tool of the JAX package has its counterpart;
+its entry points never
 fall back to the CPU, every kernel's wrapper
 dispatches (none raises "not ported"), and ``chip_smoke.py`` fails without a
 GPU."""
@@ -54,8 +56,14 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "predict_
                                         ROOT / "train_spsedt_torch.py",
                                         ROOT / "train_ss_sedt_torch.py",
                                         ROOT / "train_at_torch.py",
-                                        ROOT / "dryrun_multigpu_torch.py",
-                                        ROOT / "tools" / "time_jv_kernels.py"]
+                                        ROOT / "dryrun_multigpu_torch.py"]
+SOURCES += sorted((ROOT / "tools").glob("*_torch.py")) + [ROOT / "tools" / "time_jv_kernels.py"]
+# each measuring tool of the JAX package and its port counterpart
+TOOLS = {"bench_host_metrics": "bench_host_metrics_torch",
+         "bench_spsedt_bank": "bench_spsedt_bank_torch", "capture_trace": "capture_trace_torch",
+         "profile_semi": "profile_semi_torch", "profile_spsedt": "profile_spsedt_torch",
+         "profile_step": "profile_step_torch", "xplane_report": "trace_report_torch",
+         "try_remat": "try_remat_torch"}
 
 
 def _imported_roots(path: Path):
@@ -72,6 +80,17 @@ def test_no_jax_import(path):
     # the port's own name starts with the JAX package's, so roots are compared whole;
     # every import statement counts, a function's too
     assert not (BANNED | {"pandas", "tools"}) & set(_imported_roots(path))
+
+
+def test_every_measuring_tool_is_scanned():
+    """Each JAX tool that measures has its port counterpart, and the scan
+    holds it to the port's imports (tensorflow too: the JAX trace report's)."""
+    scanned = {p.name for p in SOURCES}
+    for jax_tool, port_tool in TOOLS.items():
+        assert (ROOT / "tools" / f"{jax_tool}.py").exists()
+        assert f"{port_tool}.py" in scanned
+        roots = set(_imported_roots(ROOT / "tools" / f"{port_tool}.py"))
+        assert not (BANNED | {"pandas", "tools", "tensorflow"}) & roots, port_tool
 
 
 def test_import_scan_sees_function_level_imports(tmp_path):

@@ -20,7 +20,9 @@ To compare two versions on one card, run both in one command, in turns:
 
 The helpers of this checkout's ``chip_smoke.py`` then run on the other
 checkout's package, which must have ``ops.hungarian.lsap_lane`` and
-``lsap_square`` and ``ops.matcher._square_pad``.
+``lsap_square``, ``ops.matcher._square_pad`` and the timers that
+``chip_smoke.py`` imports from ``utils/profiler.py`` (``device_ms`` and the
+rest): an older checkout fails at that import.
 """
 import importlib.util
 import json
