@@ -39,6 +39,7 @@ from ..engine import Batch
 from ..models.criterion import DenseTargets
 from ..parallel.distribute import data_rank, data_world
 from ..parallel.mesh import local_sizes, share
+from ..utils.profiler import annotate
 from .encoder import to_dense_targets
 from .features import read_audio
 from .transforms import extract_patches, get_random_patch_boxes
@@ -439,30 +440,33 @@ def batch_iterator(
             bounds = [0] + list(dataset.cumulative_sizes)
 
         for idxs in index_batches:
-            idxs = [int(i) for i in idxs]
-            filled, last = [], next((i for i in idxs if i >= 0), 0)
-            for i in idxs:  # a pad row repeats the last real sample before it
-                last = i if i >= 0 else last
-                filled.append(last)
-            src = share(filled, stream_sizes, rank, world)
-            read = filled if every_row else src
-            uflags = None
-            if bounds is not None:
-                uflags = np.array([bisect.bisect_right(bounds, i) - 1 in unlabel_streams
-                                   for i in src])
-            if bank is not None:
-                ys = [dataset.targets_only(i, bank.raw_frames[i]) for i in read]
-                ys = share(ys, stream_sizes, rank, world) if every_row else ys
-                rows = idxs if return_indexes else filled
-                by_rank = [i for r in range(world) for i in share(rows, stream_sizes, r, world)]
-                b = _batch(None, ys, max_events, seconds, by_rank, uflags, bank.shape[1])
-            else:
-                samples = [dataset[i] for i in read]
-                samples = share(samples, stream_sizes, rank, world) if every_row else samples
-                b = collate(samples, max_events, seconds,
-                            share(idxs, stream_sizes, rank, world) if return_indexes else None,
-                            uflags)
-            yield _pinned(b) if pin_memory else b
+            with annotate("data.batch"):  # one batch, on the prefetch thread
+                idxs = [int(i) for i in idxs]
+                filled, last = [], next((i for i in idxs if i >= 0), 0)
+                for i in idxs:  # a pad row repeats the last real sample before it
+                    last = i if i >= 0 else last
+                    filled.append(last)
+                src = share(filled, stream_sizes, rank, world)
+                read = filled if every_row else src
+                uflags = None
+                if bounds is not None:
+                    uflags = np.array([bisect.bisect_right(bounds, i) - 1 in unlabel_streams
+                                       for i in src])
+                if bank is not None:
+                    ys = [dataset.targets_only(i, bank.raw_frames[i]) for i in read]
+                    ys = share(ys, stream_sizes, rank, world) if every_row else ys
+                    rows = idxs if return_indexes else filled
+                    by_rank = [i for r in range(world)
+                               for i in share(rows, stream_sizes, r, world)]
+                    b = _batch(None, ys, max_events, seconds, by_rank, uflags, bank.shape[1])
+                else:
+                    samples = [dataset[i] for i in read]
+                    samples = (share(samples, stream_sizes, rank, world) if every_row
+                               else samples)
+                    rows = share(idxs, stream_sizes, rank, world) if return_indexes else None
+                    b = collate(samples, max_events, seconds, rows, uflags)
+                b = _pinned(b) if pin_memory else b
+            yield b
 
     return iter(Prefetcher(gen))
 

@@ -58,6 +58,7 @@ from .ops.patches import extract_patches_device
 from .parallel.distribute import all_reduce_sum, data_world
 from .parallel.optim import SEDTOptimizer, ema_update, make_optimizer
 from .parallel.tensor import same_bits_on_every_rank
+from .utils.profiler import annotate
 
 
 class Batch(NamedTuple):
@@ -158,22 +159,27 @@ def make_loss_fn(model: torch.nn.Module, weight_dict: Dict[str, float], cfg: SED
                  fine_tune: bool = False, normalize: bool = False, fl: bool = False,
                  world: int = 1):
     """``loss_fn(feats, pad_mask, targets, strong, weak, generator,
-    patches=None)`` -> (weighted loss, the criterion's losses): the training
-    forward (dropout on; the masks, SP-SEDT's query shuffle and keep mask,
-    and the relaxed matching's draws from ``generator``) and the set
-    criterion, differentiable with respect to the model's parameters.
-    ``patches`` ([B, P, ph, pw, 1]) goes to an :class:`~.models.SPSEDT`.
-    With ``world`` > 1 the losses are this rank's partials."""
+    patch_boxes=None)`` -> (weighted loss, the criterion's losses): the
+    training forward (dropout on; the masks, SP-SEDT's query shuffle and
+    keep mask, and the relaxed matching's draws from ``generator``) and the
+    set criterion, differentiable with respect to the model's parameters,
+    in the spans ``train.forward`` and ``train.criterion``.  With
+    ``patch_boxes`` ([B, P, 2]) the patches are cropped from ``feats`` on
+    the device and go to an :class:`~.models.SPSEDT`.  With ``world`` > 1
+    the losses are this rank's partials."""
 
-    def loss_fn(feats, pad_mask, targets, strong, weak, generator, patches=None):
-        if patches is not None:
-            out = model(feats, pad_mask, patches, deterministic=False, generator=generator)
-        else:
-            out = model(feats, pad_mask, deterministic=False, generator=generator)
-        losses, _ = set_criterion(out, targets, strong, weak, cfg.model, cfg.loss,
-                                  fine_tune=fine_tune, normalize=normalize, fl=fl,
-                                  generator=generator, **_criterion_reduce(world))
-        return total_loss(losses, weight_dict), losses
+    def loss_fn(feats, pad_mask, targets, strong, weak, generator, patch_boxes=None):
+        with annotate("train.forward"):
+            if patch_boxes is not None:
+                patches = extract_patches_device(feats, patch_boxes)
+                out = model(feats, pad_mask, patches, deterministic=False, generator=generator)
+            else:
+                out = model(feats, pad_mask, deterministic=False, generator=generator)
+        with annotate("train.criterion"):
+            losses, _ = set_criterion(out, targets, strong, weak, cfg.model, cfg.loss,
+                                      fine_tune=fine_tune, normalize=normalize, fl=fl,
+                                      generator=generator, **_criterion_reduce(world))
+            return total_loss(losses, weight_dict), losses
 
     return loss_fn
 
@@ -202,7 +208,9 @@ def make_train_step(
     the dropout masks).  With a ``self_sup`` config the step crops the
     patches on the device from the first ``num_patches`` target boxes of the (augmented) features.  The
     metrics are ``{"loss", **losses}`` as tensors on the device; the step
-    makes no host sync.
+    makes no host sync.  Its parts run in the spans ``train.augment``,
+    ``train.forward``, ``train.criterion``, ``train.backward`` and
+    ``train.optimizer`` (:mod:`.utils.profiler`).
 
     In a process group, ``model`` is the DDP-wrapped model, the batch is
     this rank's share and the metrics are its partials (module docstring).
@@ -225,15 +233,15 @@ def make_train_step(
                     feats = frontend_fn(feats)
                 pad_mask = torch.zeros(feats.shape[:2], dtype=torch.bool, device=dev)
             if augment_on:
-                feats, targets, strong, weak = _apply_augment(cfg, feats, targets, strong,
-                                                              weak, generator)
-            patches = None
-            if cfg.model.self_sup:
-                patches = extract_patches_device(feats,
-                                                 targets.boxes[:, :cfg.model.num_patches])
-            loss, losses = loss_fn(feats, pad_mask, targets, strong, weak, generator, patches)
-            (loss * world if world > 1 else loss).backward()
-        optimizer.step()
+                with annotate("train.augment"):
+                    feats, targets, strong, weak = _apply_augment(cfg, feats, targets, strong,
+                                                                  weak, generator)
+            boxes = targets.boxes[:, :cfg.model.num_patches] if cfg.model.self_sup else None
+            loss, losses = loss_fn(feats, pad_mask, targets, strong, weak, generator, boxes)
+            with annotate("train.backward"):
+                (loss * world if world > 1 else loss).backward()
+        with annotate("train.optimizer"):
+            optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
 
     step.device = dev

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import math
 import os
 import os.path as osp
@@ -115,7 +116,7 @@ from .utils.checkpoint import (
 )
 from .utils.logger import create_logger, set_logger
 from .utils.meters import DeviceMetricAccumulator, Heartbeat, MetricLogger
-from .utils.profiler import StepTimer
+from .utils.profiler import StepTimer, annotate
 
 PSDS_THRESHOLDS = tuple(np.arange(0.1, 1.0, 0.1))  # the final test's decode thresholds
 
@@ -750,28 +751,43 @@ def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generat
     returns the metrics summed on the device (a
     :class:`DeviceMetricAccumulator` of partials, not yet fetched) and the
     step timer.  Batches are pinned for the card, and with ``bank`` their
-    features are gathered there."""
+    features are gathered there.  The call runs in the span ``train.epoch``;
+    each batch's wait in ``train.wait``, its gather in ``train.gather`` and
+    its step in ``train.step``."""
     acc = DeviceMetricAccumulator(partials=True)
-    timer = StepTimer()  # its data_time: the wait for each batch
+    timer = StepTimer()
     hb = Heartbeat(log.info, len(sampler))
-    for i, batch in enumerate(batch_iterator(dataset, iter(sampler), cfg.model.max_events,
-                                             cfg.features.max_len_seconds, bank=bank,
-                                             pin_memory=train_step.device.type == "cuda",
-                                             stream_sizes=getattr(sampler, "batch_sizes",
-                                                                  None))):
-        timer.data_loaded()
-        if bank is not None:
-            batch = batch._replace(feats=bank.gather(batch.indexes), indexes=None)
-        m = train_step(batch, generator)
-        acc.update(m)  # summed on the device; no host sync
-        timer.step_done()
-        hb.tick(i)
-        # a finiteness probe every 500 steps bounds the compute lost to a
-        # NaN (of the global loss, so every rank stops at the same step);
-        # the epoch-end check is the backstop
-        if (i + 1) % 500 == 0 and not math.isfinite(float(all_reduce_sum(m["loss"]))):
-            log.info("Loss is not finite (mid-epoch probe), stopping")
-            raise SystemExit(1)
+    with annotate("train.epoch"):
+        batches = batch_iterator(dataset, iter(sampler), cfg.model.max_events,
+                                 cfg.features.max_len_seconds, bank=bank,
+                                 pin_memory=train_step.device.type == "cuda",
+                                 stream_sizes=getattr(sampler, "batch_sizes", None))
+        for i in itertools.count():
+            # the wait runs from the last step's end to the next batch's
+            # arrival: the first starts the prefetch thread, and each one
+            # frees the batch before it (the prefetcher drops its last
+            # reference in ``next``), whose pinned memory records CUDA
+            # events on release, which can block while the device is behind
+            try:
+                with annotate("train.wait") as wait:
+                    batch = next(batches)
+            except StopIteration:  # the ended wait, for no batch, is not counted
+                break
+            timer.data_loaded(wait.seconds)
+            if bank is not None:
+                with annotate("train.gather"):
+                    batch = batch._replace(feats=bank.gather(batch.indexes), indexes=None)
+            with annotate("train.step"):
+                m = train_step(batch, generator)
+            acc.update(m)  # summed on the device; no host sync
+            hb.tick(i)
+            # a finiteness probe every 500 steps bounds the compute lost to a
+            # NaN (of the global loss, so every rank stops at the same step);
+            # the epoch-end check is the backstop
+            if (i + 1) % 500 == 0 and not math.isfinite(float(all_reduce_sum(m["loss"]))):
+                log.info("Loss is not finite (mid-epoch probe), stopping")
+                raise SystemExit(1)
+            timer.step_done()  # the next wait starts here
     return acc, timer
 
 
@@ -1630,11 +1646,20 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc = DeviceMetricAccumulator(partials=True)
-        timer = StepTimer()  # its data_time: the wait for each batch
-        for x, y in weak_batches(train_data, index_batches, pin_memory=pin):
-            timer.data_loaded()
-            acc.update({"loss": step(x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))})
-            timer.step_done()
+        timer = StepTimer()
+        batches = weak_batches(train_data, index_batches, pin_memory=pin)
+        with annotate("train.epoch"):
+            while True:
+                try:
+                    with annotate("train.wait") as wait:
+                        x, y = next(batches)
+                except StopIteration:
+                    break
+                timer.data_loaded(wait.seconds)
+                with annotate("train.step"):
+                    loss = step(x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))
+                acc.update({"loss": loss})
+                timer.step_done()
         means, n_steps = acc.means()  # the one fetch of the epoch
         train_s = time.time() - t0
         loss_mean = float(means.get("loss", float("nan")))

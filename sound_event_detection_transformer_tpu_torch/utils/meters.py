@@ -2,17 +2,18 @@
 
 Counterpart of the JAX package's ``utils/meters.py``: ``SmoothedValue``
 keeps a window of recent values plus global totals, ``MetricLogger`` groups
-meters and prints ETA lines, ``Heartbeat`` logs progress without touching the
+meters into one line, ``Heartbeat`` logs progress without touching the
 device, and ``DeviceMetricAccumulator`` sums each step's metric tensors on
-the device and fetches them once.  Over several processes both reduce over
-the data axis' ranks (one per batch shard) in one collective each.
+the device and fetches them once (the span ``train.fetch``).  Over several
+processes both reduce over the data axis' ranks (one per batch shard) in
+one collective each.
 """
 from __future__ import annotations
 
 import datetime
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterable, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -20,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.distribute import comm_device, data_group, data_world
+from .profiler import annotate
 
 
 class AverageMeter:
@@ -176,15 +178,18 @@ class DeviceMetricAccumulator:
 
     def _reduced(self):
         """(the sums, the total weight) as float64 numpy, over the ranks: one
-        packed vector, one collective, one device-to-host copy."""
+        packed vector, one collective, one device-to-host copy, in the span
+        ``train.fetch`` (the copy waits for the device's queued work)."""
         if not self._n:
             return {}, self._w
-        flat = torch.cat([v.reshape(-1).double() for v in self._sum]
-                         + [torch.tensor([self._w], dtype=torch.float64, device=self._sum[0].device)])
-        if data_world() > 1:
-            flat = flat.to(comm_device())
-            dist.all_reduce(flat, group=data_group())
-        flat = flat.cpu().numpy()
+        with annotate("train.fetch"):
+            flat = torch.cat([v.reshape(-1).double() for v in self._sum]
+                             + [torch.tensor([self._w], dtype=torch.float64,
+                                             device=self._sum[0].device)])
+            if data_world() > 1:
+                flat = flat.to(comm_device())
+                dist.all_reduce(flat, group=data_group())
+            flat = flat.cpu().numpy()
         out: Dict[str, np.ndarray] = {}
         start = 0
         for k, v in zip(self._keys, self._sum):
@@ -226,26 +231,3 @@ class MetricLogger:
     def synchronize_between_processes(self):
         for m in self.meters.values():
             m.synchronize_between_processes()
-
-    def log_every(self, iterable: Iterable, print_freq: int, header: str = ""):
-        i = 0
-        start = time.time()
-        end = time.time()
-        iter_time = SmoothedValue(fmt="{avg:.4f}")
-        data_time = SmoothedValue(fmt="{avg:.4f}")
-        try:
-            total = len(iterable)  # type: ignore[arg-type]
-        except TypeError:
-            total = None
-        for obj in iterable:
-            data_time.update(time.time() - end)
-            yield obj
-            iter_time.update(time.time() - end)
-            if i % print_freq == 0 and total:
-                eta = iter_time.global_avg * (total - i)
-                print(f"{header} [{i}/{total}] eta: {datetime.timedelta(seconds=int(eta))} "
-                      f"{self} time: {iter_time} data: {data_time}")
-            i += 1
-            end = time.time()
-        elapsed = time.time() - start
-        print(f"{header} Total time: {datetime.timedelta(seconds=int(elapsed))}")

@@ -1,10 +1,26 @@
-"""Profiling hooks and timers: ``torch.profiler`` traces, named ranges, step
-timing, device times and a report of a trace.
+"""Profiling hooks and timers: ``torch.profiler`` traces, the port's spans,
+step timing, device times and a report of a trace.
 
 Counterpart of the JAX package's ``utils/profiler.py``.  ``trace`` writes a
 Chrome trace (viewable in Perfetto or TensorBoard) of the code inside it;
-``annotate`` names a range on that timeline; ``StepTimer`` keeps the
-data-time and batch-time meters on the host clock.
+``annotate`` is the span: a named range on that timeline while the profiler
+runs, and always a host-clock total per name in ``SPANS``; ``StepTimer``
+keeps an epoch's data-time and batch-time meters and its spans.
+
+The spans, fixed names opened by the training loop and step:
+
+* ``train_lib.train_one_epoch``: ``train.epoch`` (the call), ``train.wait``
+  (from a step's end to the next batch: the wait on the prefetch queue,
+  which frees the batch before it; the first starts the prefetch thread),
+  ``train.gather`` (``FeatureBank.gather``), ``train.step`` (the step
+  call);
+* ``engine.make_train_step``: ``train.augment``, ``train.forward`` (the
+  model, with SP-SEDT's crop), ``train.criterion`` (``set_criterion``: the
+  matching and its losses), ``train.backward``, ``train.optimizer``;
+* ``meters.DeviceMetricAccumulator``: ``train.fetch`` (the meter's one
+  device-to-host copy, which waits for the device);
+* ``data.dataset.batch_iterator``, on the prefetch thread: ``data.batch``
+  (one batch's targets or patch boxes, collate and pin).
 
 The timers the measuring tools (``tools/*_torch.py``) and ``chip_smoke.py``
 share live here too: ``cuda_ms`` (CUDA events around back-to-back calls: the
@@ -15,6 +31,9 @@ and copies' rows and time under the profiler: a path's device time),
 ``kernel_kinds`` and ``trace_table`` (device time by kernel kind, from the
 profiler's rows or from a written trace), ``card_line`` and
 ``semi_step_parts``.
+
+The module imports no other module of the port at load, so that every
+layer can open spans.
 """
 from __future__ import annotations
 
@@ -26,16 +45,12 @@ import json
 import math
 import os
 import subprocess
+import threading
 import time
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
-
-from ..engine import get_pseudo_labels
-from ..models import set_criterion, total_loss
-from ..models.criterion import DenseTargets, joint_match
-from ..parallel.optim import ema_update
-from .meters import AverageMeter
+from torch.autograd import profiler as autograd_profiler
 
 
 @contextlib.contextmanager
@@ -50,38 +65,165 @@ def trace(log_dir: str = "build/torch_trace") -> Iterator[torch.profiler.profile
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range inside a trace."""
-    with torch.profiler.record_function(name):
-        yield
+# ------------------------------------------------------------------- spans
+
+# the spans a log keeps: many thousands of steps, so that a stretch of time
+# can be read back after it ended (``Spans.between``)
+SPAN_LOG = 1 << 16
+
+
+class SpanTotal(NamedTuple):
+    """How many spans of one name ended, and their seconds on the host clock."""
+
+    count: int
+    seconds: float
+
+
+class Spans:
+    """Per-name totals of the spans that ended, on the host clock
+    (``time.perf_counter``), written from any thread, and a log of the
+    latest ``keep`` spans ``(name, start, end)``.  ``totals`` is a snapshot
+    that ``since`` diffs; ``between`` reads a stretch of time after it
+    ended, from the log."""
+
+    def __init__(self, keep: int = SPAN_LOG):
+        self._lock = threading.Lock()
+        self._totals: Dict[str, List] = {}
+        self._log: collections.deque = collections.deque(maxlen=keep)
+
+    def add(self, name: str, start: float, end: float) -> None:
+        with self._lock:
+            total = self._totals.get(name)
+            if total is None:
+                self._totals[name] = [1, end - start]
+            else:
+                total[0] += 1
+                total[1] += end - start
+            self._log.append((name, start, end))
+
+    def totals(self) -> Dict[str, SpanTotal]:
+        with self._lock:
+            return {k: SpanTotal(*v) for k, v in self._totals.items()}
+
+    def since(self, before: Dict[str, SpanTotal]) -> Dict[str, SpanTotal]:
+        """The totals of the spans that ended since the snapshot ``before``."""
+        out = {}
+        for name, (n, s) in self.totals().items():
+            n0, s0 = before.get(name, (0, 0.0))
+            if n > n0:
+                out[name] = SpanTotal(n - n0, s - s0)
+        return out
+
+    def between(self, start: float, end: float) -> Optional[Dict[str, SpanTotal]]:
+        """The totals of the spans that began and ended inside ``[start,
+        end]`` (``time.perf_counter`` seconds); None when the log no longer
+        reaches back to ``start``."""
+        with self._lock:
+            log = list(self._log)
+        if len(log) == self._log.maxlen and log[0][1] > start:
+            return None
+        out: Dict[str, List] = {}
+        for name, a, b in log:
+            if a >= start and b <= end:
+                total = out.setdefault(name, [0, 0.0])
+                total[0] += 1
+                total[1] += b - a
+        return {k: SpanTotal(*v) for k, v in out.items()}
+
+
+# the process's spans: every layer opens them, none is handed a recorder
+SPANS = Spans()
+_MAIN_THREAD = threading.main_thread()
+
+
+class annotate:
+    """The span ``name``: a context manager that adds its host-clock
+    seconds to ``SPANS``, and while the torch profiler runs opens a
+    ``record_function`` range of that name, a ``user_annotation`` on the
+    trace's own clock, which the device's events share.  Only the main
+    thread's spans open a range: the profiler keeps none from a thread that
+    started inside it (the prefetch thread starts each epoch), and another
+    thread's range would name the main thread's idle gaps.
+
+    With the profiler off a span costs two clock reads and an add, and no
+    dispatcher call.  It never synchronises the device.  A span that ends by
+    an exception is left out of the totals (its range, if open, still ends).
+    ``seconds`` holds the span's time once it has ended.
+    """
+
+    __slots__ = ("name", "start", "seconds", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "annotate":
+        if (autograd_profiler._is_profiler_enabled
+                and threading.current_thread() is _MAIN_THREAD):
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        end = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        self.seconds = end - self.start
+        if exc_type is None:
+            SPANS.add(self.name, self.start, end)
+
+
+# the spans of one training step, in the order the epoch line prints them
+STEP_SPANS = ("train.wait", "train.gather", "train.step", "train.augment", "train.forward",
+              "train.criterion", "train.backward", "train.optimizer")
 
 
 class StepTimer:
-    """data_time / batch_time meters on the host clock.
+    """An epoch's timers on the host clock: ``data_time``, each batch's wait
+    (the seconds of its ``train.wait`` span, so it equals those spans'
+    totals), ``batch_time`` from one step's end to the next's, and the
+    spans' totals since the timer started (``spans``).
 
     The train loop makes no host sync per step, so a step returns once its
-    kernels are queued: ``batch_time`` measures the host's issue time, not
-    the card's.  The step time is the epoch's wall time over its steps (the
-    epoch line), which ends in the one sync of the epoch.
+    kernels are queued: ``batch_time`` and the step's spans measure the
+    host's issue time, not the card's.  The step time is the epoch's wall
+    time over its steps (the epoch line), which ends in the one sync of the
+    epoch, ``train.fetch``.
     """
 
     def __init__(self):
+        from .meters import AverageMeter  # meters opens spans of this module
+
         self.data_time = AverageMeter()
         self.batch_time = AverageMeter()
-        self._end = time.time()
+        self._spans = SPANS.totals()
+        self._end = time.perf_counter()
 
-    def data_loaded(self):
-        self.data_time.update(time.time() - self._end)
+    def data_loaded(self, seconds: float) -> None:
+        """A batch arrived after a wait of ``seconds``."""
+        self.data_time.update(seconds)
 
-    def step_done(self):
-        self.batch_time.update(time.time() - self._end)
-        self._end = time.time()
+    def step_done(self) -> None:
+        now = time.perf_counter()
+        self.batch_time.update(now - self._end)
+        self._end = now
+
+    def spans(self) -> Dict[str, SpanTotal]:
+        return SPANS.since(self._spans)
 
     def summary(self) -> str:
+        """The meters, then each step span's mean ms, the fetch's and the
+        prefetch thread's mean ms a batch (``data.batch``), as far as they
+        ran since the timer started."""
+        spans = self.spans()
+        parts = [f"{n.split('.', 1)[1]} {1e3 * spans[n].seconds / spans[n].count:.1f}"
+                 for n in STEP_SPANS + ("train.fetch", "data.batch") if n in spans]
         return (
             f"data_time:{self.data_time.val:.3f}({self.data_time.avg:.3f}) "
-            f"batch_time:{self.batch_time.val:.3f}({self.batch_time.avg:.3f})"
+            f"batch_time:{self.batch_time.val:.3f}({self.batch_time.avg:.3f}) "
+            f"spans ms: {', '.join(parts)}"
         )
 
 
@@ -377,6 +519,11 @@ def semi_step_parts(model, teacher, weight_dict: Dict[str, float], cfg, optimize
     backward less the forward and criterion), the optimizer and the EMA.
     ``views`` are the step's (teacher, student) inputs; ``flags`` the
     batch's (strong, weak, unlabel) rows, labeled ones first."""
+    from ..engine import get_pseudo_labels
+    from ..models import set_criterion, total_loss
+    from ..models.criterion import DenseTargets, joint_match
+    from ..parallel.optim import ema_update
+
     m = cfg.model
     lab, unl = slice(0, n_lab), slice(n_lab, None)
     tf, sf = views

@@ -80,9 +80,12 @@ def test_logger_and_step_timer():
     log = logger.create_logger("test_torch_meters")
     assert log is logger.create_logger("test_torch_meters") and log.level == logging.INFO
     timer = profiler.StepTimer()
-    timer.data_loaded()
+    with profiler.annotate("train.wait") as wait:
+        pass
+    timer.data_loaded(wait.seconds)
     timer.step_done()
     assert "data_time" in timer.summary() and timer.batch_time.count == 1
+    assert "wait " in timer.summary() and timer.data_time.sum == wait.seconds
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

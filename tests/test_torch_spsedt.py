@@ -315,10 +315,10 @@ def steps(weights_and_batches):
     tcfg, model, twd = _port_model(params, frozen)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     tstate = init_train_state(model, tcfg, STEPS_PER_EPOCH)
-    patches = extract_patches_device(tbatch.feats, tbatch.targets.boxes[:, :P])
     loss, _ = make_loss_fn(model, twd, tcfg)(tbatch.feats, tbatch.pad_mask, tbatch.targets,
                                              tbatch.strong, tbatch.weak,
-                                             torch.Generator().manual_seed(0), patches)
+                                             torch.Generator().manual_seed(0),
+                                             tbatch.targets.boxes[:, :P])
     loss.backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
     tstate.optimizer.adamw.zero_grad(set_to_none=False)
