@@ -6,10 +6,19 @@ trunk runs NCHW.  Module and parameter names follow the flax tree
 (``conv0``, ``conv1``, ``bn1``, ``layer{stage}_{block}``, ``downsample_conv``;
 ``backbone``, ``fc1``, ``fc2`` in :class:`AudioTagBackbone`) so that
 :func:`..weights.from_flax` maps one onto the other by name.
+
+Every FrozenBN follows a convolution, and the blocks fold it in
+(:func:`conv_bn`): ``bn(conv(x, W))`` is ``conv(x, W * w) + b``, one
+convolution with a bias in place of a convolution and two passes over its
+output.  ``(w, b)`` and, where no gradient can reach ``W``, the folded weight
+are built once per state of their sources and kept (:class:`FrozenBatchNorm`);
+:data:`FOLDS` counts how often each was reused and rebuilt.
 """
 from __future__ import annotations
 
+import collections
 import math
+from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -17,11 +26,55 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-5
 
+# reuses and rebuilds of the cached folds since the process began: ``wb_*``
+# of every FrozenBN's (w, b), ``weight_*`` of a frozen convolution's W * w
+FOLDS: collections.Counter = collections.Counter()
+
+
+def fold_summary(since: collections.Counter) -> str:
+    """The share of folds reused since the snapshot ``since`` (a copy of
+    :data:`FOLDS`), for (w, b) and for the frozen convolutions' weights."""
+    parts = []
+    for kind, label in (("wb", "(w, b)"), ("weight", "frozen W'")):
+        reused = FOLDS[f"{kind}_reused"] - since[f"{kind}_reused"]
+        total = reused + FOLDS[f"{kind}_rebuilt"] - since[f"{kind}_rebuilt"]
+        share = f"{100.0 * reused / total:.1f} %" if total else "-"
+        parts.append(f"{label} {share} of {total}")
+    return "fold reuse: " + ", ".join(parts)
+
+
+def _key(*tensors: torch.Tensor) -> Tuple:
+    """What identifies the values of ``tensors``: where each lives and how
+    often it was written in place."""
+    return tuple((t.device, t.dtype, t.data_ptr(), t._version) for t in tensors)
+
+
+class _Fold:
+    """A FrozenBN's cached folds, made outside autograd and as normal tensors
+    even under ``torch.inference_mode`` (the evaluation step), so a training
+    pass can use them next.  The sources' detached views are kept with them,
+    so that no other tensor takes a source's memory (and its ``data_ptr``)
+    while the entry lives.  A deep copy starts empty and rebuilds from its
+    own buffers."""
+
+    def __init__(self):
+        self.key = self.w = self.b = None
+        self.sources: Tuple = ()
+        self.drop_weight()
+
+    def drop_weight(self) -> None:
+        self.weight_key = self.weight = self.weight_source = None
+
+    def __deepcopy__(self, memo) -> "_Fold":
+        return _Fold()
+
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with fixed statistics and affine parameters, held as buffers
     and folded into one multiply-add: w = scale / sqrt(var + eps),
-    b = bias - mean * w."""
+    b = bias - mean * w.  ``(w, b)`` are built once per state of the buffers
+    (a load, a move or an in-place write rebuilds them) and kept as plain
+    attributes, out of the state dict."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -29,11 +82,61 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self._fold = _Fold()
+
+    def affine(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(w, b)``: the scale in the buffers' f32, the shift in ``dtype``
+        (what the convolution consumes)."""
+        f = self._fold
+        bufs = (self.scale, self.bias, self.mean, self.var)
+        key = (dtype,) + _key(*bufs)
+        if f.key == key:
+            FOLDS["wb_reused"] += 1
+            return f.w, f.b
+        with torch.inference_mode(False), torch.no_grad():
+            w = self.scale * torch.reciprocal(torch.sqrt(self.var + BN_EPS))
+            f.w, f.b = w, (self.bias - self.mean * w).to(dtype)
+        f.key, f.sources = key, tuple(t.detach() for t in bufs)
+        f.drop_weight()
+        FOLDS["wb_rebuilt"] += 1
+        return f.w, f.b
+
+    def folded_weight(self, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``weight * w`` per output channel, formed in f32 and kept in
+        ``dtype``, for a convolution that no gradient reaches; call after
+        :meth:`affine`, which drops it when the buffers change."""
+        f = self._fold
+        key = (dtype,) + _key(weight)
+        if f.weight_key == key:
+            FOLDS["weight_reused"] += 1
+            return f.weight
+        with torch.inference_mode(False), torch.no_grad():
+            f.weight = (weight * f.w[:, None, None, None]).to(dtype)
+        f.weight_key, f.weight_source = key, weight.detach()
+        FOLDS["weight_rebuilt"] += 1
+        return f.weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x [B, C, H, W]
-        w = self.scale * torch.reciprocal(torch.sqrt(self.var + BN_EPS))
-        b = self.bias - self.mean * w
-        return x * w.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+        w, b = self.affine(x.dtype)
+        return x * w.to(x.dtype)[:, None, None] + b[:, None, None]
+
+
+def conv_bn(conv: nn.Conv2d, bn: FrozenBatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``bn(conv(x))`` as one convolution, ``conv(x, W * w) + b``, for a
+    ``conv`` without bias.  Where ``W`` trains under grad mode, ``W * w`` is
+    formed on every call in f32 (autocast casts it as it would cast ``W``),
+    so that autograd gives ``W`` its gradient; elsewhere (a frozen ``W``,
+    ``no_grad``, an EMA teacher) it is cached in the compute dtype."""
+    dev = x.device.type  # the convolution computes in autocast's dtype, when it is on
+    dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+    w, b = bn.affine(dtype)
+    weight = conv.weight
+    if torch.is_grad_enabled() and weight.requires_grad:
+        bn._fold.drop_weight()  # an evaluation's copy, stale from the next update
+        weight = weight * w[:, None, None, None]
+    else:
+        weight = bn.folded_weight(weight, dtype)
+    return F.conv2d(x, weight, b, conv.stride, conv.padding, conv.dilation, conv.groups)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
@@ -63,10 +166,10 @@ class Bottleneck(nn.Module):
         self.has_downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        sc = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        out = F.relu(conv_bn(self.conv1, self.bn1, x))
+        out = F.relu(conv_bn(self.conv2, self.bn2, out))
+        out = conv_bn(self.conv3, self.bn3, out)
+        sc = conv_bn(self.downsample_conv, self.downsample_bn, x) if self.has_downsample else x
         return F.relu(out + sc)
 
 
@@ -88,9 +191,9 @@ class BasicBlock(nn.Module):
         self.has_downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        sc = self.downsample_bn(self.downsample_conv(x)) if self.has_downsample else x
+        out = F.relu(conv_bn(self.conv1, self.bn1, x))
+        out = conv_bn(self.conv2, self.bn2, out)
+        sc = conv_bn(self.downsample_conv, self.downsample_bn, x) if self.has_downsample else x
         return F.relu(out + sc)
 
 
@@ -142,8 +245,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # [B, 1, T, F]
-        x = self.conv1(self.conv0(x))
-        x = F.relu(self.bn1(x))
+        x = F.relu(conv_bn(self.conv1, self.bn1, self.conv0(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x)

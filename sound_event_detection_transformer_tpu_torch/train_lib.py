@@ -86,6 +86,7 @@ from .engine import (
 )
 from .metrics import PSDSEval, audio_tagging_results, compute_metrics, format_audio_tagging, psds_score
 from .models import AudioTagBackbone, build_model, resolve_device
+from .models.resnet import FOLDS, fold_summary
 from .models.torch_import import load_imagenet_backbone
 from .ops import augment
 from .ops.frontend import make_frontend_fn
@@ -934,7 +935,7 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
             fine_tune_stage()
             train_step = make_step()
 
-        t0 = time.time()
+        t0, folds0 = time.time(), FOLDS.copy()
         mlog = MetricLogger(delimiter="  ")
         lr_now = (1e-5 if epoch >= args.epochs_ls
                   else cfg.train.lr if not cfg.train.adjust_lr
@@ -948,7 +949,7 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
         mlog.update(loss=loss_mean, class_error=class_error, lr=lr_now)
         mlog.synchronize_between_processes()
         log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}")
+                 f"{timer.summary()}; {fold_summary(folds0)}")
         log.info("Train averaged stats:\n" + str(mlog))
         record.update(loss=loss_mean, loss_means=dict(means, loss=loss_mean,
                                                       class_error=class_error),
@@ -1154,7 +1155,7 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     for epoch in range(start_epoch, args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
-        t0 = time.time()
+        t0, folds0 = time.time(), FOLDS.copy()
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc, timer = train_one_epoch(train_step, train_data, index_batches, cfg, bank, gen, log)
@@ -1162,7 +1163,7 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
         train_s = time.time() - t0
         loss_mean = float(means.get("loss", float("nan")))
         log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}")
+                 f"{timer.summary()}; {fold_summary(folds0)}")
         record.update(loss=loss_mean, loss_means=means, steps=n_steps, train_s=train_s,
                       data_wait_s=timer.data_time.sum)
         if not math.isfinite(loss_mean):
@@ -1382,7 +1383,7 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     for epoch in range(start_epoch, args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
-        t0 = time.time()
+        t0, folds0 = time.time(), FOLDS.copy()
         mlog = MetricLogger(delimiter="  ")
         # the thresholds go to the device once an epoch, compared in f32
         threshold_dev = torch.as_tensor(thresholds, dtype=torch.float32).to(dev)
@@ -1399,7 +1400,7 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
         thresholds = adjust_threshold(counts, origin_threshold, prior)
         mlog.synchronize_between_processes()
         log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}; pseudo counts {counts.astype(int).tolist()}")
+                 f"{timer.summary()}; {fold_summary(folds0)}; pseudo counts {counts.astype(int).tolist()}")
         log.info("Train averaged stats:\n" + str(mlog))
         record.update(loss=loss_mean, loss_means=dict(means, loss=loss_mean), steps=n_steps,
                       train_s=train_s, data_wait_s=timer.data_time.sum,
@@ -1642,7 +1643,7 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
     for epoch in range(args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
-        t0 = time.time()
+        t0, folds0 = time.time(), FOLDS.copy()
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc = DeviceMetricAccumulator(partials=True)
@@ -1664,7 +1665,7 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
         train_s = time.time() - t0
         loss_mean = float(means.get("loss", float("nan")))
         log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}")
+                 f"{timer.summary()}; {fold_summary(folds0)}")
         record.update(loss=loss_mean, steps=n_steps, train_s=train_s,
                       data_wait_s=timer.data_time.sum)
         if n_steps and not math.isfinite(loss_mean):

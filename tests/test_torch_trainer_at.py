@@ -24,7 +24,8 @@ package's, and SP-SEDT's ``--pretrain`` from its checkpoint.
 * The chain: JAX's ``run_spsedt --pretrain at_avg_dcase`` from the JAX
   audio-tag checkpoint, the port's from the port's, on ``--synthetic_smoke``
   at mask ratio 0 (``test_torch_trainer_spsedt.run_both``), give the same
-  epoch losses to the same tolerances.
+  epoch losses to the same tolerances; and so does the chain with the
+  port's FrozenBN applied after each convolution, as JAX applies it.
 * ``at_args`` sets what the JAX package's ``main_at`` sets; several
   processes raise, naming the multi-GPU item; a non-finite epoch mean
   exits with code 1.  That the entry point needs a device or a GPU is
@@ -48,7 +49,7 @@ from sound_event_detection_transformer_tpu import train_lib as jtrain_lib
 from sound_event_detection_transformer_tpu.utils import meters as jmeters
 from sound_event_detection_transformer_tpu_torch import cli, train_lib
 from sound_event_detection_transformer_tpu_torch.data import wav_dataset
-from sound_event_detection_transformer_tpu_torch.models import AudioTagBackbone
+from sound_event_detection_transformer_tpu_torch.models import AudioTagBackbone, resnet
 from sound_event_detection_transformer_tpu_torch.utils import checkpoint
 from sound_event_detection_transformer_tpu_torch.weights import from_flax
 from test_torch_trainer import TOL, TOL_FIRST
@@ -187,6 +188,33 @@ def test_spsedt_pretrain_from_the_port_checkpoint_matches_jax_chain(smoke):
                    lambda model, state: loaded.extend(real(model, state)) or loaded)
         jax_means, result = run_spsedt_both(["--dataname", "dcase"] + SPSEDT_SMOKE
                                             + ["--pretrain", "at_avg_dcase"], tmp)
+    assert len(loaded) == 22  # resnet18's convolutions and conv0's bias
+    assert len(result.epochs) == len(jax_means) == 2
+    for e, (rec, want) in enumerate(zip(result.epochs, jax_means)):
+        np.testing.assert_allclose(rec["loss"], want, err_msg=f"epoch {e}",
+                                   **(TOL_FIRST if e == 0 else TOL))
+
+
+def test_spsedt_pretrain_chain_with_bn_after_each_conv_matches_jax(tmp_path):
+    """The whole chain (its own audio-tag run, then SP-SEDT from each side's
+    checkpoint) with the port's FrozenBN applied after each convolution in
+    both stages, in the JAX package's order of arithmetic.
+
+    It holds the checkpoints' hand-off, the backbone's loading and the
+    pretrainer apart from how the backbone rounds: the chain amplifies a
+    rounding change of its convolutions (the backbone's features reach
+    about 100 after the audio-tag stage, and SP-SEDT's patch queries nearly
+    tie in the matching), and the shipped folded backbone is held against
+    JAX by the test above."""
+    loaded = []
+    real = train_lib.load_audio_tag_backbone
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(resnet, "conv_bn", lambda conv, bn, x: bn(conv(x)))
+        run_both(SMOKE, tmp_path)
+        mp.setattr(train_lib, "load_audio_tag_backbone",
+                   lambda model, state: loaded.extend(real(model, state)) or loaded)
+        jax_means, result = run_spsedt_both(["--dataname", "dcase"] + SPSEDT_SMOKE
+                                            + ["--pretrain", "at_avg_dcase"], tmp_path)
     assert len(loaded) == 22  # resnet18's convolutions and conv0's bias
     assert len(result.epochs) == len(jax_means) == 2
     for e, (rec, want) in enumerate(zip(result.epochs, jax_means)):
