@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 
 from .parallel.distribute import init_distributed
+from .parallel.optim import AST_LR
 
 from .train_lib import (
     AudioTagResult,
@@ -138,13 +139,22 @@ def at_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The audio-tag trainer's arguments: the trainer's flags and
     ``--nepochs`` (sets ``epochs`` when given) and ``--fix_backbone``
     (parsed, without effect, as in the JAX package); ``--pooling`` defaults
-    to ``avg`` and ``--info`` to ``at_<pooling>_<dataname>``."""
+    to ``avg`` and ``--info`` to ``at_<pooling>_<dataname>``.  The port's
+    own: ``--at_model`` (``resnet``, the JAX package's model, or ``ast``,
+    ``train_lib.audio_tag_ast``); ``--lr`` defaults to AST's recipe's 1e-5
+    with ``ast``."""
     parser = get_parser()
     parser.add_argument("--nepochs", type=int, default=None, help="alias of --epochs")
     parser.add_argument("--fix_backbone", action="store_true", default=False,
                         help="accepted for the reference's command lines; no effect (the JAX "
                              "package's trainer ignores it too): every parameter trains")
+    parser.add_argument("--at_model", default="resnet", choices=("resnet", "ast"),
+                        help="the tagger: the ResNet backbone with a pooled MLP head, or AST")
+    lr_default = parser.get_default("lr")
+    parser.set_defaults(lr=None)
     args = parser.parse_args(argv)
+    if args.lr is None:
+        args.lr = AST_LR if args.at_model == "ast" else lr_default
     if args.nepochs is not None:
         args.epochs = args.nepochs
     if args.pooling is None:

@@ -1,5 +1,5 @@
 """Model zoo of the port: SEDT, SP-SEDT, their criterion and post-processing, and the
-audio-tag model."""
+audio-tag models (the ResNet tagger and AST)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +8,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import SEDTConfig
+from .ast import AST, AUDIOSET, ASTConfig
 from .criterion import DenseTargets, build_weight_dict, empty_targets, set_criterion, total_loss
 from .postprocess import PostProcessResult, postprocess
 from .resnet import AudioTagBackbone, ResNetBackbone, num_backbone_channels
@@ -20,6 +21,9 @@ __all__ = [
     "MLP",
     "ResNetBackbone",
     "AudioTagBackbone",
+    "AST",
+    "ASTConfig",
+    "AUDIOSET",
     "Transformer",
     "DenseTargets",
     "empty_targets",

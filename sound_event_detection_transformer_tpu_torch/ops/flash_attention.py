@@ -25,6 +25,8 @@ back in the input type.  The ``[Sq, Sk]`` scores are never written out.
 * The gradient, as in the JAX package, has no kernel: the backward recomputes
   :func:`reference_attention`, the plain non-flash math, and differentiates
   that, so training through the kernel gets the non-flash path's gradients.
+  Each backward counts into ``flash_attention.recomputes`` and runs in the
+  span ``attention.backward``, a range on autograd's thread too.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiler import annotate
 from ._build import load_library
 
 NEG_INF = -1.0e30  # start of the running maximum: finite, so no inf - inf
@@ -296,11 +299,14 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, bias = ctx.saved_tensors
         wants_bias = bias is not None and ctx.needs_input_grad[3]
-        with torch.enable_grad():
-            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            bd = bias.detach().requires_grad_() if wants_bias else bias
-            out = reference_attention(qd, kd, vd, bd)
-        grads = torch.autograd.grad(out, [qd, kd, vd] + ([bd] if wants_bias else []), grad_out)
+        flash_attention.recomputes += 1
+        with annotate("attention.backward", any_thread=True):
+            with torch.enable_grad():
+                qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+                bd = bias.detach().requires_grad_() if wants_bias else bias
+                out = reference_attention(qd, kd, vd, bd)
+            grads = torch.autograd.grad(out, [qd, kd, vd] + ([bd] if wants_bias else []),
+                                        grad_out)
         return (*grads, None) if not wants_bias else grads
 
 
@@ -315,3 +321,4 @@ flash_attention.launches = 0  # every kernel launch, whichever variant
 flash_attention.launches_tensor = 0  # of those, the tensor-core variant's
 flash_attention.launches_f32 = 0  # and the f32-core variant's
 flash_attention.launches_split = 0  # tensor-core launches that split the keys
+flash_attention.recomputes = 0  # backward calls, each a recompute of the plain attention

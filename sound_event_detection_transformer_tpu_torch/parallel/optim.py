@@ -23,13 +23,16 @@ Counterpart of the JAX package's ``parallel/optim.py``:
 * the mean-teacher EMA;
 * the audio-tag trainer's ``optax.chain(clip_by_global_norm, adam(staircase
   exponential decay))`` (:func:`make_audio_tag_optimizer`): the same
-  optimizer over every parameter, no freeze, weight decay 0.
+  optimizer over every parameter, no freeze, weight decay 0;
+* AST's recipe (:func:`make_ast_optimizer`): ``torch.optim.Adam`` with
+  betas (0.95, 0.999) and an L2 weight decay of 5e-7 added to the gradient,
+  no clip, the lr halved every epoch from epoch 2 (:func:`halving_lr`).
 """
 from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -61,6 +64,18 @@ def step_lr(base_lr: float, lr_drop: int, steps_per_epoch: int, gamma: float = 0
     def sched(step: int) -> float:
         epoch = step // max(1, steps_per_epoch)
         return base_lr * gamma ** (epoch // lr_drop)
+
+    return sched
+
+
+def halving_lr(base_lr: float, start_epoch: int, steps_per_epoch: int):
+    """AST's ``MultiStepLR(milestones=range(start_epoch, ...), gamma=0.5)``
+    stepped once an epoch, in updates: the lr of epoch ``e`` (from 0) is
+    ``base_lr * 0.5 ** max(0, e - start_epoch + 1)``."""
+
+    def sched(step: int) -> float:
+        epoch = step // max(1, steps_per_epoch)
+        return base_lr * 0.5 ** max(0, epoch - start_epoch + 1)
 
     return sched
 
@@ -109,21 +124,24 @@ class SEDTOptimizer:
     Call :meth:`step` after each backward.  It counts the micro-step; on
     every ``accumulate``-th one it averages the summed gradients, clips them,
     sets each group's lr from its schedule at the update count, updates and
-    zeroes the gradients.
+    zeroes the gradients.  ``clip_max_norm=None`` skips the clip;
+    ``decoupled=False`` makes the torch optimizer (``adamw``) an Adam whose
+    weight decay is added to the gradient (L2) instead of AdamW's.
     """
 
     def __init__(self, groups: Dict[str, List[torch.nn.Parameter]],
                  schedules: Dict[str, Callable[[int], float]], weight_decay: float,
-                 clip_max_norm: float, accumulate: int = 1):
+                 clip_max_norm: Optional[float], accumulate: int = 1,
+                 betas: Tuple[float, float] = (0.9, 0.999), decoupled: bool = True):
         labels = [label for label in ("main", "backbone") if groups[label]]
         self.params = [p for label in labels for p in groups[label]]
         # the parameters cut over the model axis (parallel.mesh.shard_model)
         self.sharded = [getattr(p, "model_shard_dim", None) is not None for p in self.params]
         self.schedules = [schedules[label] for label in labels]
-        self.adamw = torch.optim.AdamW(
+        opt = torch.optim.AdamW if decoupled else torch.optim.Adam
+        self.adamw = opt(
             [{"params": groups[label], "lr": schedules[label](0)} for label in labels],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
-            fused=self.params[0].is_cuda)
+            betas=betas, eps=1e-8, weight_decay=weight_decay, fused=self.params[0].is_cuda)
         self.clip_max_norm = clip_max_norm
         self.accumulate = accumulate
         self.micro_steps = 0  # calls of step()
@@ -139,7 +157,8 @@ class SEDTOptimizer:
         grads = [p.grad for p in self.params]
         if self.accumulate > 1:
             torch._foreach_div_(grads, float(self.accumulate))
-        clip_by_global_norm_(grads, self.clip_max_norm, self.sharded)
+        if self.clip_max_norm is not None:
+            clip_by_global_norm_(grads, self.clip_max_norm, self.sharded)
         for group, sched in zip(self.adamw.param_groups, self.schedules):
             group["lr"] = sched(self.updates)
         self.adamw.step()
@@ -193,6 +212,21 @@ def make_audio_tag_optimizer(model: torch.nn.Module, lr: float, lr_drop: int,
     AdamW is Adam."""
     return SEDTOptimizer({"main": list(model.parameters()), "backbone": []},
                          {"main": step_lr(lr, lr_drop, steps_per_epoch)}, 0.0, clip_max_norm)
+
+
+AST_LR = 1e-5  # the AudioSet recipe's lr, --lr's default with --at_model ast
+AST_BETAS = (0.95, 0.999)
+AST_WEIGHT_DECAY = 5e-7
+AST_HALVING_START = 2  # the first epoch (from 0) at half the lr
+
+
+def make_ast_optimizer(model: torch.nn.Module, lr: float, steps_per_epoch: int) -> SEDTOptimizer:
+    """AST's recipe (``src/traintest.py``): ``torch.optim.Adam(lr,
+    weight_decay=5e-7, betas=(0.95, 0.999))`` over every parameter, no clip,
+    the lr halved every epoch from epoch 2."""
+    return SEDTOptimizer({"main": list(model.parameters()), "backbone": []},
+                         {"main": halving_lr(lr, AST_HALVING_START, steps_per_epoch)},
+                         AST_WEIGHT_DECAY, None, betas=AST_BETAS, decoupled=False)
 
 
 @torch.no_grad()

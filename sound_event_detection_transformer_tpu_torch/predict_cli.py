@@ -11,8 +11,10 @@ Example:
     --dataname urbansed --wav_dir ./my_clips --out predictions.tsv --dec_at
 
 ``main`` runs on the current CUDA device and raises without one.
-:func:`make_infer` builds the device pipeline alone, for callers that bring
-their own waveforms; it and :func:`run` take ``device="cpu"`` for tests.
+:func:`make_infer` builds the device pipeline alone and
+:func:`predict_batches` runs it over batches of waveforms and decodes them,
+for callers that bring their own waveforms; they and :func:`run` take
+``device="cpu"`` for tests.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import argparse
 import csv
 import glob
 import os.path as osp
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from .models import build_model, postprocess, resolve_device
 from .ops.frontend import make_frontend_fn
 from .train_lib import args_to_config, get_parser
 from .utils.checkpoint import load_checkpoint
+from .utils.profiler import annotate
 
 TSV_COLUMNS = ("filename", "onset", "offset", "event_label", "score")
 
@@ -62,7 +65,7 @@ def make_infer(
     boxes [B, Q, 2] in seconds)``, tensors on ``device``: the frontend, the
     deterministic forward with nothing padded, the audio tags at 0.5 and the
     fusion post-processing.  ``waves`` may be a numpy array or a tensor on any
-    device."""
+    device; ``infer.device`` is ``device``."""
     dev = resolve_device(device)
     param = next(model.parameters())
     if param.device != dev:
@@ -86,38 +89,58 @@ def make_infer(
         pp = postprocess(out, sizes, audio_tags=tags, at_m=at_m)
         return pp.scores, pp.labels, pp.boxes
 
+    infer.device = dev
     return infer
 
 
-def predict_files(cfg: SEDTConfig, infer, wavs: Sequence[str], batch_size: int,
-                  threshold: float) -> List[Tuple]:
-    """Run ``infer`` over wav files in batches; returns the TSV's rows."""
+def predict_batches(cfg: SEDTConfig, infer, batches: Iterable[Tuple[Sequence[str], np.ndarray]],
+                    threshold: float) -> List[Tuple]:
+    """Run ``infer`` (:func:`make_infer`'s) over ``batches`` of ``(names,
+    waves [B, n_samples])``, the first ``len(names)`` rows of each a clip
+    (the rest padding); returns the TSV's rows, each clip's events decoded
+    at ``threshold`` and clipped to the clip.  Each batch goes to
+    ``infer.device`` in the span ``predict.copy`` and is decoded on the host
+    in ``predict.decode``, after the fetch of its outputs."""
     fc = cfg.features
     enc = BoxEncoder(list(cfg.data.classes), seconds=fc.max_len_seconds)
+    rows = []
+    for names, waves in batches:
+        with annotate("predict.copy"):
+            waves = torch.as_tensor(waves).to(infer.device)
+        scores, labels, boxes = (t.cpu().numpy() for t in infer(waves))
+        with annotate("predict.decode"):
+            for j, name in enumerate(names):
+                for lbl, on, off, sc in enc.decode_strong(
+                    {"scores": scores[j], "labels": labels[j], "boxes": boxes[j]},
+                    threshold=threshold,
+                ):
+                    rows.append((name, float(np.clip(on, 0, fc.max_len_seconds)),
+                                 float(np.clip(off, 0, fc.max_len_seconds)), lbl, float(sc)))
+    return rows
+
+
+def wav_batches(cfg: SEDTConfig, wavs: Sequence[str], batch_size: int
+                ) -> Iterator[Tuple[List[str], np.ndarray]]:
+    """``(basenames, waves [batch_size, n_samples])`` of the wav files in
+    order: each clip cut or zero-padded to the clip length, one batch shape
+    throughout (the ragged tail is zero-padded)."""
+    fc = cfg.features
     n_samples = int(fc.max_len_seconds * fc.sample_rate)
     bs = max(1, batch_size)
-    rows = []
     for i in range(0, len(wavs), bs):
         chunk = wavs[i:i + bs]
-        # one batch shape throughout: the ragged tail is zero-padded
         batch = np.zeros((bs, n_samples), np.float32)
         for j, w in enumerate(chunk):
             audio, _ = read_audio(w, fc.sample_rate)
             n = min(len(audio), n_samples)
             batch[j, :n] = audio[:n]
-        scores, labels, boxes = (t.cpu().numpy() for t in infer(batch))
-        for j, w in enumerate(chunk):
-            for lbl, on, off, sc in enc.decode_strong(
-                {"scores": scores[j], "labels": labels[j], "boxes": boxes[j]},
-                threshold=threshold,
-            ):
-                rows.append(
-                    (osp.basename(w),
-                     float(np.clip(on, 0, fc.max_len_seconds)),
-                     float(np.clip(off, 0, fc.max_len_seconds)),
-                     lbl, float(sc))
-                )
-    return rows
+        yield [osp.basename(w) for w in chunk], batch
+
+
+def predict_files(cfg: SEDTConfig, infer, wavs: Sequence[str], batch_size: int,
+                  threshold: float) -> List[Tuple]:
+    """Run ``infer`` over wav files in batches; returns the TSV's rows."""
+    return predict_batches(cfg, infer, wav_batches(cfg, wavs, batch_size), threshold)
 
 
 def write_tsv(rows: Sequence[Tuple], path: str) -> None:

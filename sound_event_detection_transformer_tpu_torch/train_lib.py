@@ -28,10 +28,12 @@ Counterpart of the JAX package's ``train_lib.py``:
   teacher's pseudo-labels, class-wise thresholds adapted each epoch, the
   teacher's or the student's evaluation, checkpoints, resume), returning a
   :class:`TrainResult`;
-* ``run_audio_tag``: the audio-tag backbone trainer (clip tags by a
-  logit-space BCE on ``AudioTagBackbone``, clipped Adam, the validation's
-  clip macro F1 and a best checkpoint, which ``run_spsedt --pretrain``
-  reads), returning an :class:`AudioTagResult`.
+* ``run_audio_tag``: the audio-tag trainer (clip tags by a logit-space BCE
+  on ``AudioTagBackbone`` with clipped Adam, or with ``--at_model ast`` on
+  AST with its recipe's Adam under bf16 autocast; each epoch through
+  ``train_audio_tag_epoch``; the validation's clip macro F1 and a best
+  checkpoint, which ``run_spsedt --pretrain`` reads), returning an
+  :class:`AudioTagResult`.
 
 Each trainer runs in a ``torch.distributed`` group of N processes too
 (``torchrun``; ``parallel.distribute.init_distributed``): every rank draws
@@ -46,6 +48,7 @@ decision and writes the checkpoints.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -85,10 +88,11 @@ from .engine import (
     make_train_step,
 )
 from .metrics import PSDSEval, audio_tagging_results, compute_metrics, format_audio_tagging, psds_score
-from .models import AudioTagBackbone, build_model, resolve_device
+from .models import AST, AUDIOSET, ASTConfig, AudioTagBackbone, build_model, resolve_device
 from .models.resnet import FOLDS, fold_summary
 from .models.torch_import import load_imagenet_backbone
 from .ops import augment
+from .ops.flash_attention import flash_attention
 from .ops.frontend import make_frontend_fn
 from .parallel.distribute import (
     all_reduce_sum,
@@ -104,7 +108,7 @@ from .parallel.distribute import (
     rank_seed,
 )
 from .parallel.mesh import local_sizes, share, wrap_model
-from .parallel.optim import SEDTOptimizer, make_audio_tag_optimizer
+from .parallel.optim import SEDTOptimizer, make_ast_optimizer, make_audio_tag_optimizer
 from .parallel.tensor import same_bits_on_every_rank
 from .utils.checkpoint import (
     EarlyStopping,
@@ -1536,23 +1540,62 @@ def build_audio_tag_data(cfg: SEDTConfig, args) -> Dict:
             "encoder": mhe, "timings": timings}
 
 
-def init_audio_tag_model(cfg: SEDTConfig, pooling: str, device: torch.device) -> AudioTagBackbone:
-    """The audio-tag model to train (logits out): parameters drawn on the CPU
+def audio_tag_ast(args, cfg: SEDTConfig) -> Tuple[SEDTConfig, Optional[ASTConfig]]:
+    """``(cfg, ast)``: with ``--at_model ast`` AST's settings, the published
+    AudioSet model (:data:`~.models.AUDIOSET`); else ``(cfg, None)``.  On
+    ``--synthetic_smoke`` the clips take AST's geometry (frames, mel bins and
+    classes ``class_0`` ...); on a dataset from disk AST takes the data's, as
+    the upstream recipes set ``input_tdim``, ``input_fdim`` and ``label_dim``
+    per dataset, and keeps its widths."""
+    if getattr(args, "at_model", "resnet") != "ast":
+        return cfg, None
+    ast = AUDIOSET
+    if args.synthetic_smoke:
+        classes = tuple(f"class_{i}" for i in range(ast.num_classes))
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, max_frames=ast.frames,
+                                                    n_mels=ast.n_mels),
+                          data=dataclasses.replace(cfg.data, classes=classes))
+    else:
+        ast = dataclasses.replace(ast, n_mels=cfg.model.n_mels, frames=cfg.model.max_frames,
+                                  num_classes=len(cfg.data.classes))
+    return cfg, ast
+
+
+def init_audio_tag_model(cfg: SEDTConfig, pooling: str, device: torch.device,
+                         ast: Optional[ASTConfig] = None) -> torch.nn.Module:
+    """The audio-tag model to train (logits out): ``AudioTagBackbone``, or
+    :class:`~.models.AST` at ``ast`` when given; parameters drawn on the CPU
     from ``cfg.train.seed``, then moved to ``device``."""
     m = cfg.model
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
-        model = AudioTagBackbone(m.backbone, m.dilation, pooling, len(cfg.data.classes),
-                                 logits_out=True)
+        if ast is not None:
+            model = AST(ast)
+        else:
+            model = AudioTagBackbone(m.backbone, m.dilation, pooling, len(cfg.data.classes),
+                                     logits_out=True)
     return model.to(device).eval()
 
 
-def make_audio_tag_step(model: AudioTagBackbone, optimizer: SEDTOptimizer):
+def audio_tag_dtype(cfg: SEDTConfig, ast: Optional[ASTConfig]) -> Optional[torch.dtype]:
+    """The audio-tag step's autocast dtype: ``--compute_dtype`` for AST (its
+    recipe trains under autocast), None (f32) for ``AudioTagBackbone``, which
+    computes in f32 as the JAX package's does whatever that flag says."""
+    if ast is None or cfg.model.compute_dtype == "float32":
+        return None
+    return getattr(torch, cfg.model.compute_dtype)
+
+
+def make_audio_tag_step(model: torch.nn.Module, optimizer: SEDTOptimizer,
+                        compute_dtype: Optional[torch.dtype] = None):
     """One audio-tag update on a batch already on the model's device
     (features [B, T, F, 1], multi-hot labels [B, C]): the BCE on the logits,
-    averaged over B x C, its backward, the clip and Adam.  Returns the loss
-    on the device (not fetched).  It computes in f32, as the JAX package's
-    ``AudioTagBackbone`` does whatever ``--compute_dtype`` says.
+    averaged over B x C, its backward, then the optimizer (the clip and Adam
+    for ``AudioTagBackbone``, AST's Adam for AST).  Returns the loss on the
+    device (not fetched).  The forward and the loss run under autocast to
+    ``compute_dtype`` when given (the BCE in f32, as autocast computes it),
+    else in f32.  Its parts run in the spans ``train.forward`` (the model
+    and the BCE), ``train.backward`` and ``train.optimizer``.
 
     In a process group ``model`` is DDP-wrapped and the batch is this rank's
     share: the local mean is N times the rank's partial of the global mean,
@@ -1562,12 +1605,53 @@ def make_audio_tag_step(model: AudioTagBackbone, optimizer: SEDTOptimizer):
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         with same_bits_on_every_rank():  # a model group's ranks compute it side by side
-            loss = F.binary_cross_entropy_with_logits(model(x), y)
-            loss.backward()
-        optimizer.step()
+            cast = (contextlib.nullcontext() if compute_dtype is None
+                    else torch.autocast(x.device.type, dtype=compute_dtype))
+            with annotate("train.forward"), cast:
+                loss = F.binary_cross_entropy_with_logits(model(x), y)
+            with annotate("train.backward"):
+                loss.backward()
+        with annotate("train.optimizer"):
+            optimizer.step()
         return loss.detach() / world if world > 1 else loss.detach()
 
     return step
+
+
+def train_audio_tag_epoch(step, dataset, index_batches: Sequence[Sequence[int]],
+                          device: torch.device):
+    """One pass of the audio-tag trainer over ``index_batches`` (global index
+    lists) of ``dataset`` through ``step`` (:func:`make_audio_tag_step`), on
+    this rank's share of each batch: the batches built on the prefetch
+    thread (``weak_batches``, pinned for the card) and copied to ``device``
+    without a wait; returns the loss summed on the device (a
+    :class:`DeviceMetricAccumulator` of partials, not yet fetched) and the
+    step timer.  The call runs in the span ``train.epoch``; each batch's wait
+    in ``train.wait`` and its step in ``train.step``."""
+    acc = DeviceMetricAccumulator(partials=True)
+    timer = StepTimer()
+    batches = weak_batches(dataset, index_batches, pin_memory=device.type == "cuda")
+    with annotate("train.epoch"):
+        while True:
+            try:
+                with annotate("train.wait") as wait:
+                    x, y = next(batches)
+            except StopIteration:  # the ended wait, for no batch, is not counted
+                break
+            timer.data_loaded(wait.seconds)
+            with annotate("train.step"):
+                loss = step(x.to(device, non_blocking=True), y.to(device, non_blocking=True))
+            acc.update({"loss": loss})
+            timer.step_done()
+    return acc, timer
+
+
+def k4_summary(launches0: int, recomputes0: int, steps: int) -> str:
+    """Kernel K4's forward launches and backward recomputes a step since the
+    counts ``launches0`` and ``recomputes0``."""
+    per = lambda n: n / max(steps, 1)
+    return (f"K4 a step: {per(flash_attention.launches - launches0):.1f} launches, "
+            f"{per(flash_attention.recomputes - recomputes0):.1f} recomputes")
 
 
 @torch.no_grad()
@@ -1594,28 +1678,34 @@ def audio_tag_rows(model: AudioTagBackbone, dataset, encoder: ManyHotEncoder, ba
 
 
 def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTagResult:
-    """The audio-tag backbone trainer, on ``--synthetic_smoke`` clips or the
-    dataset under ``--data_root`` (``build_audio_tag_data``), returning the
-    last validation's clip macro F1 and what the run measured.
+    """The audio-tag trainer, on ``--synthetic_smoke`` clips or the dataset
+    under ``--data_root`` (``build_audio_tag_data``), returning the last
+    validation's clip macro F1 and what the run measured.
 
     Runs on ``device`` (the GPU when None).  The model is
     ``AudioTagBackbone`` at ``--backbone``, ``--dilation`` and ``--pooling``
     (avg when unset), from an ImageNet backbone when one is named or
-    present.  Each update: the BCE on the logits, then the clip of the
-    global norm at 0.1 over every parameter (nothing is frozen) and Adam at
+    present: each update the BCE on the logits, then the clip of the global
+    norm at 0.1 over every parameter (nothing is frozen) and Adam at
     ``--lr``, times 0.1 every ``--lr_drop`` epochs; f32, without autocast.
-    Per epoch: one permutation from a ``RandomState(seed)`` (the JAX
-    package's draw from numpy's seeded global stream), its full batches (the
-    ragged tail dropped) built on the prefetch thread, the loss summed on
-    the device and fetched once; a non-finite mean ends the run with
-    ``SystemExit(1)``; then the clip tags of the validation set and their
-    macro F1, and on a new best F1 the checkpoint ``{"model", "epoch"}`` at
-    ``<exp_root>/<dataset>/model/at_<pooling>_<dataset>``.  In a process
-    group each rank trains on its contiguous share of every batch under DDP;
-    rank 0 scores the gathered tags and decides the checkpoint.
+    With ``--at_model ast`` it is AST (:func:`audio_tag_ast`) from seeded
+    weights: the BCE under autocast to ``--compute_dtype``, then AST's Adam
+    (:func:`~.parallel.optim.make_ast_optimizer`) at ``--lr`` (1e-5 unless
+    given), halved every epoch from epoch 2.  Per epoch
+    (:func:`train_audio_tag_epoch`): one permutation from a
+    ``RandomState(seed)`` (the JAX package's draw from numpy's seeded global
+    stream), its full batches (the ragged tail dropped) built on the
+    prefetch thread, the loss summed on the device and fetched once; a
+    non-finite mean ends the run with ``SystemExit(1)``; then the clip tags
+    of the validation set and their macro F1, and on a new best F1 the
+    checkpoint ``{"model", "epoch"}`` at
+    ``<exp_root>/<dataset>/model/at_<pooling>_<dataset>`` (``at_ast_...``
+    for AST).  In a process group each rank trains on its contiguous share
+    of every batch under DDP; rank 0 scores the gathered tags and decides
+    the checkpoint.
     """
     dev = trainer_device(device)
-    cfg = args_to_config(args)
+    cfg, ast = audio_tag_ast(args, args_to_config(args))
     _check_layout(cfg, [cfg.data.batch_size])
     if args.log:
         set_logger(cfg.train.info)
@@ -1630,42 +1720,35 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
     data = build_audio_tag_data(cfg, args)
     train_data, valid, mhe = data["train"], data["validation"], data["encoder"]
     bs = cfg.data.batch_size
-    model = init_audio_tag_model(cfg, pooling, dev)
-    _imagenet_backbone_init(model, args, log)
+    model = init_audio_tag_model(cfg, pooling, dev, ast)
+    if ast is None:
+        _imagenet_backbone_init(model, args, log)
     log.info(f"params: {sum(p.numel() for p in model.parameters())}")
-    optimizer = make_audio_tag_optimizer(model, args.lr, args.lr_drop,
-                                         max(len(train_data) // bs, 1), AT_CLIP_MAX_NORM)
-    step = make_audio_tag_step(wrap_model(model, dev), optimizer)
-    pin = dev.type == "cuda"
+    steps_per_epoch = max(len(train_data) // bs, 1)
+    if ast is None:
+        optimizer = make_audio_tag_optimizer(model, args.lr, args.lr_drop, steps_per_epoch,
+                                             AT_CLIP_MAX_NORM)
+    else:
+        optimizer = make_ast_optimizer(model, args.lr, steps_per_epoch)
+    step = make_audio_tag_step(wrap_model(model, dev), optimizer,
+                               compute_dtype=audio_tag_dtype(cfg, ast))
     best = SaveBest("sup")
-    model_path = osp.join(model_dir, f"at_{pooling}_{cfg.data.dataset_name}")
+    name = "ast" if ast is not None else pooling
+    model_path = osp.join(model_dir, f"at_{name}_{cfg.data.dataset_name}")
     f1 = 0.0
     for epoch in range(args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
         t0, folds0 = time.time(), FOLDS.copy()
+        k4 = flash_attention.launches, flash_attention.recomputes
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
-        acc = DeviceMetricAccumulator(partials=True)
-        timer = StepTimer()
-        batches = weak_batches(train_data, index_batches, pin_memory=pin)
-        with annotate("train.epoch"):
-            while True:
-                try:
-                    with annotate("train.wait") as wait:
-                        x, y = next(batches)
-                except StopIteration:
-                    break
-                timer.data_loaded(wait.seconds)
-                with annotate("train.step"):
-                    loss = step(x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))
-                acc.update({"loss": loss})
-                timer.step_done()
+        acc, timer = train_audio_tag_epoch(step, train_data, index_batches, dev)
         means, n_steps = acc.means()  # the one fetch of the epoch
         train_s = time.time() - t0
         loss_mean = float(means.get("loss", float("nan")))
         log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}; {fold_summary(folds0)}")
+                 f"{timer.summary()}; {fold_summary(folds0)}; {k4_summary(*k4, n_steps)}")
         record.update(loss=loss_mean, steps=n_steps, train_s=train_s,
                       data_wait_s=timer.data_time.sum)
         if n_steps and not math.isfinite(loss_mean):

@@ -20,7 +20,14 @@ The spans, fixed names opened by the training loop and step:
 * ``meters.DeviceMetricAccumulator``: ``train.fetch`` (the meter's one
   device-to-host copy, which waits for the device);
 * ``data.dataset.batch_iterator``, on the prefetch thread: ``data.batch``
-  (one batch's targets or patch boxes, collate and pin).
+  (one batch's targets or patch boxes, collate and pin);
+* ``train_lib.make_audio_tag_step``: ``train.forward`` (the model and the
+  BCE), ``train.backward``, ``train.optimizer``; ``train_lib.
+  train_audio_tag_epoch``: ``train.epoch``, ``train.wait``, ``train.step``;
+* ``ops.flash_attention``'s backward: ``attention.backward`` (K4's
+  recompute of the plain attention and its gradient, on autograd's thread);
+* ``predict_cli.predict_batches``: ``predict.copy`` (a batch of waveforms
+  to the device) and ``predict.decode`` (a batch's host decode).
 
 The timers the measuring tools (``tools/*_torch.py``) and ``chip_smoke.py``
 share live here too: ``cuda_ms`` (CUDA events around back-to-back calls: the
@@ -143,7 +150,10 @@ class annotate:
     trace's own clock, which the device's events share.  Only the main
     thread's spans open a range: the profiler keeps none from a thread that
     started inside it (the prefetch thread starts each epoch), and another
-    thread's range would name the main thread's idle gaps.
+    thread's range would name the main thread's idle gaps.  ``any_thread``
+    opens it on any thread, for a span inside autograd's backward, which on
+    the card runs on autograd's own device thread (the profiler's state
+    follows the backward there).
 
     With the profiler off a span costs two clock reads and an add, and no
     dispatcher call.  It never synchronises the device.  A span that ends by
@@ -151,15 +161,16 @@ class annotate:
     ``seconds`` holds the span's time once it has ended.
     """
 
-    __slots__ = ("name", "start", "seconds", "_range")
+    __slots__ = ("name", "start", "seconds", "_range", "_any_thread")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, any_thread: bool = False):
         self.name = name
         self._range = None
+        self._any_thread = any_thread
 
     def __enter__(self) -> "annotate":
         if (autograd_profiler._is_profiler_enabled
-                and threading.current_thread() is _MAIN_THREAD):
+                and (self._any_thread or threading.current_thread() is _MAIN_THREAD)):
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
         self.start = time.perf_counter()

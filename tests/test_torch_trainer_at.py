@@ -26,7 +26,8 @@ package's, and SP-SEDT's ``--pretrain`` from its checkpoint.
   at mask ratio 0 (``test_torch_trainer_spsedt.run_both``), give the same
   epoch losses to the same tolerances; and so does the chain with the
   port's FrozenBN applied after each convolution, as JAX applies it.
-* ``at_args`` sets what the JAX package's ``main_at`` sets; several
+* ``at_args`` sets what the JAX package's ``main_at`` sets (and the port's
+  own ``--at_model`` at its default); several
   processes raise, naming the multi-GPU item; a non-finite epoch mean
   exits with code 1.  That the entry point needs a device or a GPU is
   ``tests/test_torch_package.py``'s.
@@ -96,7 +97,8 @@ def run_both(argv, tmp_path, jax_extra=(), torch_extra=()):
         jf1 = jtrain_lib.run_audio_tag(jargs)
     assert f1s[-1] == jf1
 
-    def init_audio_tag_model(cfg, pooling, device):
+    def init_audio_tag_model(cfg, pooling, device, ast=None):
+        assert ast is None  # the ResNet tagger, the JAX package's
         model = AudioTagBackbone(cfg.model.backbone, cfg.model.dilation, pooling,
                                  len(cfg.data.classes), logits_out=True)
         model.load_state_dict(init["state"], strict=True)
@@ -229,6 +231,8 @@ def test_at_args_set_what_the_jax_entry_point_sets(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["train_at.py"] + argv)
     jcli.main_at()
     targs = cli.at_args(argv)
+    port_only = {"at_model": "resnet"}  # the port's own flag, at its default
+    assert {k: vars(targs).pop(k) for k in port_only} == port_only
     assert vars(targs) == vars(seen[0])
     assert (targs.epochs, targs.pooling, targs.info, targs.fix_backbone) == (
         7, "avg", "at_avg_urbansed", True)
@@ -248,8 +252,8 @@ def test_several_processes_raise_naming_multi_gpu(tmp_path, monkeypatch):
 def test_a_non_finite_loss_exits_with_code_1(tmp_path, monkeypatch):
     real = train_lib.make_audio_tag_step
 
-    def nan_step(model, optimizer):
-        step = real(model, optimizer)
+    def nan_step(model, optimizer, **kw):
+        step = real(model, optimizer, **kw)
         return lambda x, y: step(x, y) * float("nan")
 
     monkeypatch.setattr(train_lib, "make_audio_tag_step", nan_step)
