@@ -20,6 +20,12 @@ nvcc for sm_90a, all started together), then:
    variant also at query sides of 1, 16, 17 and 41 rows, at key sides below
    one tile and ragged, with the keys split over blocks, and a bf16 input on
    an 8- but not 16-byte boundary, which must take the f32-core variant;
+   K4's backward kernels at the tensor-core variant's shapes, a slice of
+   AST's batch and AST's whole [64, 12, 1214, 64] against the plain backward
+   in f32 on the same bf16 inputs (each gradient to ``K4_BACKWARD_TOL`` of
+   its largest entry, one kernel call and no recompute through autograd,
+   each row's log-sum-exp against ``torch.logsumexp``), and a replayed CUDA
+   graph of it;
 3. runs the evaluation step at the tiny f32 geometry, the tiny long-clip
    predict (528 encoder tokens, so the card takes K4), two tiny train
    steps (dropout 0 on the training path), ``train_lib.evaluate`` over 48
@@ -157,6 +163,13 @@ nvcc for sm_90a, all started together), then:
    and launches a step under the profiler (its table in the output
    directory as ``at_step_profile.txt``), the time by kernel kind and the
    device time of the forward, the backward and the clip with Adam;
+4h'. drives AST's audio-tag step (``AST_RECIPE``: the published AudioSet
+   model, bf16 autocast, AST's Adam) at batch 64 through
+   ``train_lib.audio_tag_ast``, ``init_audio_tag_model``,
+   ``make_ast_optimizer`` and ``make_audio_tag_step``: K4 12 times a step,
+   every launch the tensor-core variant, one backward kernel call for each
+   and no recompute (the count of K4's backward in the ``kernels`` line),
+   every loss finite; it prints ms/step, clips/s and the peak memory;
 4i. drives the flagship train step under ``torch.distributed``
    (``parallel/dryrun.py``; dropout 0, augment off, bench_torch's batch of
    64, bf16 autocast, 3 steps): (a) under DDP in a group of one over NCCL
@@ -229,7 +242,9 @@ nvcc for sm_90a, all started together), then:
    square-padded copy, which must take K3's warp variant;
 7. times every kernel at the path's shape (device time: CUDA events around a
    replayed CUDA graph of 20 launches; and per call launched from Python) and
-   its plain version, computes its bound from bytes and operations, prints a
+   its plain version (and K4's backward at AST's [64, 12, 1214, 64] beside
+   its bound, the plain backward and ``scaled_dot_product_attention``'s
+   backward), computes its bound from bytes and operations, prints a
    second figure beside it on a line of its own (K1-K3: a model of the
    longest search's dependent steps, counted by hand from the source and
    priced at step latencies timed on the card, with the cycles an expansion
@@ -316,6 +331,7 @@ from sound_event_detection_transformer_tpu_torch.parallel.distribute import (
 )
 from sound_event_detection_transformer_tpu_torch.parallel.mesh import shard_model
 from sound_event_detection_transformer_tpu_torch.parallel.optim import (
+    make_ast_optimizer,
     make_audio_tag_optimizer,
     param_label,
 )
@@ -476,6 +492,8 @@ TINY_SEMI = ["--dataname", "dcase", "--synthetic_smoke", "--smoke_clips", "16",
 AT_RECIPE = ["--dataname", "dcase", "--pooling", "avg", "--log"]
 AT_WARMUP = 3  # recipe steps before the timed ones
 AT_STEPS = 10  # timed recipe steps
+AST_RECIPE = ["--at_model", "ast", "--synthetic_smoke", "--compute_dtype", "bfloat16"]
+AST_STEPS = 3  # timed AST steps, after one that warms up
 AT_CHAIN = AT_RECIPE + ["--data_root", SPSEDT_ROOT, "--exp_root", SPSEDT_EXP, "--epochs", "2"]
 TINY_AT = ["--dataname", "dcase", "--synthetic_smoke", "--smoke_clips", "16", "--batch_size",
            "4", "--backbone", "resnet18", "--epochs", "2", "--log", "--exp_root"]
@@ -530,7 +548,7 @@ def reset_launch_counts() -> None:
     for wrapper in (hungarian.lsap_lane, hungarian.lsap_block, hungarian.lsap_square,
                     flash_attention.flash_attention):
         for name in vars(wrapper):
-            if name.startswith("launches"):
+            if name.startswith("launches") or name == "backward_launches":
                 setattr(wrapper, name, 0)
 
 
@@ -543,7 +561,7 @@ def launch_counts() -> dict:
             "K2 warp": k2.launches_warp, "K2 block": k2.launches_block,
             "K3 warp": k3.launches_warp, "K3 square": k3.launches_square,
             "K4 tensor": k4.launches_tensor, "K4 f32": k4.launches_f32,
-            "K4 split": k4.launches_split}
+            "K4 split": k4.launches_split, "K4 backward": k4.backward_launches}
 
 
 # ------------------------------------------------- K1, K2, K3: assignment
@@ -888,6 +906,175 @@ def time_k4(rng, sq: int, sk: int, dev, card: str, clock_hz: float) -> dict:
             "bound_by": bound["by"], "library_ms": library_ms}
 
 
+AST_K4 = (64, 12, 1214, 64)  # AST's attention in the benchmark's cell: [B, H, N, D]
+# K4's backward at its bf16 tensors, each gradient against the plain backward
+# in f32 on the same inputs: the kernels round P and dS to bf16 once as
+# operands of the products and the gradients to bf16 at the end (2^-9
+# relative each), so the largest difference over the largest |gradient| stays
+# at a few bf16 roundings (0.0061 the largest read on an H100)
+K4_BACKWARD_TOL = 2e-2
+
+
+def k4_backward_against_plain(q, k, v, bias, label: str) -> float:
+    """K4's backward kernels (through autograd and called directly) against
+    :func:`flash_attention.flash_attention_backward_plain` run in f32 on the
+    same bf16 q, k, v and a seeded output gradient, each side from its own
+    forward's output and row statistics.  Through autograd: one backward
+    launch, no recompute, the same bits as the direct call.  Returns the
+    largest of the three gradients' max |kernel - plain| / max |plain|."""
+    gen = torch.Generator(device=q.device).manual_seed(q.shape[2] * 131 + k.shape[2])
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    counts = (flash_attention.flash_attention.backward_launches,
+              flash_attention.flash_attention.recomputes)
+    out = flash_attention.flash_attention(*leaves, bias)
+    out.backward(g)
+    torch.cuda.synchronize()
+    took = (flash_attention.flash_attention.backward_launches - counts[0],
+            flash_attention.flash_attention.recomputes - counts[1])
+    assert took == (1, 0), f"K4 backward at {label}: (kernel calls, recomputes) {took}"
+    got_out, stats, out_lo = flash_attention._launch(q, k, v, bias, with_stats=True)
+    assert torch.equal(got_out, out), f"K4 at {label}: the stats' store moved the output"
+    got = flash_attention.flash_attention_backward(q, k, v, bias, got_out, stats, g, out_lo)
+    for name, a, t in zip("qkv", got, leaves):
+        assert torch.equal(a, t.grad), f"K4 backward at {label}: d{name} through autograd differs"
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lse = stats[..., 0] + stats[..., 1].log()
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    want_lse = torch.logsumexp(scores if bias is None else scores + bias, dim=-1)
+    # each row's error over the larger of its own |log-sum-exp| and 1, so the
+    # -1e9 of an all-padded clip's rows does not hide the live rows' errors
+    lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max())
+    del scores, want_lse
+    plain_out, plain_stats = flash_attention.flash_attention_plain(qf, kf, vf, bias,
+                                                                   with_stats=True)
+    want = flash_attention.flash_attention_backward_plain(qf, kf, vf, bias, plain_out,
+                                                          plain_stats, g.float())
+    errs = k4_backward_gaps(got, want, q.dtype, label)
+    print(f"K4 backward parity {label}: max |kernel - plain| / max |plain| of dq, dk, dv "
+          f"{errs[0]:.3g}, {errs[1]:.3g}, {errs[2]:.3g}; row log-sum-exp {lse_err:.3g}")
+    if lse_err > 1e-5:
+        raise AssertionError(f"K4 backward at {label}: row log-sum-exp off by {lse_err}")
+    return max(errs)
+
+
+def k4_backward_gaps(got, want, dtype, label: str) -> list:
+    """max |kernel - plain| / max |plain| of each of dq, dk and dv, the
+    kernel's in ``dtype`` and finite; raises above ``K4_BACKWARD_TOL``."""
+    errs = []
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all().item(), (label, name)
+        errs.append(float((a.float() - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+    if max(errs) > K4_BACKWARD_TOL:
+        raise AssertionError(f"K4 backward parity failed at {label}: dq, dk, dv {errs}")
+    return errs
+
+
+def k4_backward_bound(b: int, h: int, n: int, d: int) -> dict:
+    """The least time of K4's backward at [B, H, N, D] without a bias: five
+    products of 2 B H N^2 D at the bf16 rate, against q, k, v, o and dout read
+    and dq, dk, dv written in bf16 and the row statistics and D in f32.  The
+    benchmark's ``metrics/k4_backward_roofline.least_s`` counts the same: the
+    two must stay equal."""
+    ops = 5 * 2 * b * h * n * n * d
+    nbytes = 8 * b * h * n * d * 2 + 2 * b * h * n * 4
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return {"ms": max(bytes_ms, ops_ms), "by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms}
+
+
+def time_k4_backward(dev, card: str, shape=AST_K4) -> dict:
+    """K4's backward kernels at AST's [B, H, N, D] in bf16 on tensors laid out
+    as the model's projections lay them, in a replayed CUDA graph; beside it
+    its bound, the plain backward's time and, as ``library_ms`` only,
+    ``scaled_dot_product_attention``'s backward (which the port never calls).
+    The kernels' gradients are held against the plain backward's on the same
+    inputs to ``K4_BACKWARD_TOL``."""
+    b, h, n, d = shape
+    rng = np.random.RandomState(SEED + 2)
+    q, k, v, _ = attention_inputs(rng, b, h, n, n, d, torch.bfloat16, dev, "none",
+                                  projected=True)
+    out, stats, out_lo = flash_attention._launch(q, k, v, None, with_stats=True)
+    g = torch.from_numpy(rng.randn(b, n, h, d).astype(np.float32)).to(dev, q.dtype).transpose(1, 2)
+    call = lambda: flash_attention.flash_attention_backward(q, k, v, None, out, stats, g, out_lo)
+    ms = device_ms(call, calls=5, replays=4)
+    eager_ms = cuda_ms(call, 10)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    plain_out, plain_stats = flash_attention.flash_attention_plain(qf, kf, vf, None,
+                                                                   with_stats=True)
+    plain = lambda: flash_attention.flash_attention_backward_plain(
+        qf, kf, vf, None, plain_out, plain_stats, g.float())
+    plain_ms = cuda_ms(plain, 2, warmup=1)
+    label = f"{list(shape)} bf16 none, projected, timed"
+    errs = k4_backward_gaps(call(), plain(), q.dtype, label)
+    print(f"K4 backward parity {label}: max |kernel - plain| / max |plain| of dq, dk, dv "
+          f"{errs[0]:.3g}, {errs[1]:.3g}, {errs[2]:.3g}")
+    del qf, kf, vf, plain_out, plain_stats
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), 10)
+    forward_ms = device_ms(lambda: flash_attention.flash_attention(q, k, v), calls=5, replays=4)
+    bound = k4_backward_bound(b, h, n, d)
+    print(f"K4 backward q k v {list(q.shape)} bf16: {ms:.4f} ms on the device "
+          f"({eager_ms:.4f} ms per call launched back to back from Python; forward "
+          f"{forward_ms:.4f} ms), plain backward {plain_ms:.2f} ms, library backward "
+          f"(scaled_dot_product_attention, not on the port's path) {library_ms:.4f} ms, bound "
+          f"{bound['ms']:.4f} ms by {bound['by']} ({bound['ops']} operations in "
+          f"{bound['ops_ms']:.4f} ms; {bound['bytes']} B in {bound['bytes_ms']:.4f} ms), "
+          f"{100 * bound['ms'] / ms:.1f} % of it ({card})")
+    return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": bound["ms"],
+            "bound_by": bound["by"], "library_ms": library_ms, "forward_ms": forward_ms,
+            "max_rel_err_timed": max(errs)}
+
+
+# K4's backward at the tensor-core variant's edges: (B, H, Sq, Sk, D, the
+# forward splits the keys); test_k4_tensor_core_variant's shapes and a slice
+# of AST's batch
+K4_BACKWARD_SHAPES = [
+    (8, 8, 752, 752, 32, False), (8, 8, 41, 752, 32, True), (2, 2, 1, 752, 32, True),
+    (2, 2, 16, 40, 32, False), (2, 2, 17, 100, 64, True), (1, 2, 41, 200, 128, True),
+    (2, 4, 41, 130, 64, True), (3, 2, 16, 65, 32, True), (2, 2, 300, 190, 128, True),
+    (8, 8, 300, 70, 64, False), (2, 12, 1214, 1214, 64, False)]
+
+
+def check_k4_backward(dev: torch.device) -> float:
+    """K4's backward kernels against the plain backward at every shape of
+    ``K4_BACKWARD_SHAPES`` with every constant bias kind (q, k, v laid out as
+    the projections lay them with the padding bias), then at AST's whole
+    ``AST_K4`` as its training step calls them (no bias, the projections'
+    layout), and a captured call replayed to the same bits; returns the
+    largest relative difference."""
+    rng = np.random.RandomState(SEED + 3)
+    worst = 0.0
+    for b, h, sq, sk, d, _ in K4_BACKWARD_SHAPES:
+        for bias_kind in ("padding", "full", "none"):
+            q, k, v, bias = attention_inputs(rng, b, h, sq, sk, d, torch.bfloat16, dev, bias_kind,
+                                             projected=bias_kind == "padding")
+            worst = max(worst, k4_backward_against_plain(q, k, v, bias,
+                                                         f"{(b, h, sq, sk, d)} bf16 {bias_kind}"))
+    b, h, n, d = AST_K4
+    q, k, v, _ = attention_inputs(rng, b, h, n, n, d, torch.bfloat16, dev, "none", projected=True)
+    worst = max(worst, k4_backward_against_plain(q, k, v, None,
+                                                 f"AST {list(AST_K4)} bf16 none, projected"))
+    del q, k, v
+    q, k, v, bias = attention_inputs(rng, 2, 4, 41, 752, 32, torch.bfloat16, dev, "padding",
+                                     projected=True)
+    out, stats, out_lo = flash_attention._launch(q, k, v, bias, with_stats=True)
+    g = torch.randn(q.shape, device=dev).to(q.dtype)
+    want = flash_attention.flash_attention_backward(q, k, v, bias, out, stats, g, out_lo)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_attention.flash_attention_backward(q, k, v, bias, out, stats, g, out_lo)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want)), "K4 backward under a CUDA graph"
+    print(f"K4 backward parity: ok at {len(K4_BACKWARD_SHAPES)} shapes x 3 bias kinds and AST's "
+          f"{list(AST_K4)}, largest "
+          f"{worst:.3g} of the plain gradient's largest; a replayed CUDA graph gives the same bits")
+    return worst
+
+
 def check_kernels(dev: torch.device) -> dict:
     """Phase 2: every kernel against its references; returns the largest
     error of each (assignment cost against the optimum; K4 against its plain
@@ -965,6 +1152,7 @@ def check_kernels(dev: torch.device) -> dict:
         err = k4_against_plain(q, k, v, bias, f"shifted bf16 {bias_kind}", "f32", False)
         errs["K4 bfloat16"] = max(errs["K4 bfloat16"], err)
     print("K4 parity bf16 input 8 bytes off a 16-byte boundary: ok, took the f32-core variant")
+    errs["K4 backward"] = check_k4_backward(dev)
     torch.cuda.synchronize()
     return errs
 
@@ -1955,6 +2143,55 @@ def run_audio_tag_step_phase(dev: torch.device, card: str) -> dict:
     for name, ms in parts.items():
         print(f"audio-tag step part {name}: {ms:.4f} ms of device time, {ms / total:.4f} of the "
               f"parts' {total:.3f} ms ({card})")
+    return counts
+
+
+def run_ast_step_phase(dev: torch.device, card: str) -> dict:
+    """Phase 4h': AST's audio-tag step (``AST_RECIPE``: the published
+    AudioSet model, 1,214 tokens, d 768, 12 heads, 12 layers, bf16 autocast,
+    AST's Adam) through ``audio_tag_ast``, ``init_audio_tag_model``,
+    ``make_ast_optimizer`` and ``make_audio_tag_step`` at batch ``AST_K4[0]``
+    on seeded clips on the card: K4 12 times a step, every launch the
+    tensor-core variant unsplit, one backward kernel call for each launch and
+    no recompute, K1-K3 never, every loss finite.  Returns the launch counts
+    of the timed steps."""
+    args = at_args(AST_RECIPE + ["--batch_size", str(AST_K4[0])])
+    cfg, ast = train_lib.audio_tag_ast(args, train_lib.args_to_config(args))
+    bs = cfg.data.batch_size
+    model = train_lib.init_audio_tag_model(cfg, args.pooling, dev, ast)
+    step = train_lib.make_audio_tag_step(model, make_ast_optimizer(model, args.lr, AST_STEPS),
+                                         compute_dtype=train_lib.audio_tag_dtype(cfg, ast))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(bs, ast.frames, ast.n_mels, 1, generator=gen, device=dev)
+    y = (torch.rand(bs, ast.num_classes, generator=gen, device=dev) < 0.01).float()
+    step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    recomputes = flash_attention.flash_attention.recomputes
+    reset_launch_counts()  # the main path: counts from here ...
+    losses = []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(AST_STEPS):
+        losses.append(step(x, y))
+    stop.record()
+    stop.synchronize()
+    counts = launch_counts()  # ... to here
+    recomputes = flash_attention.flash_attention.recomputes - recomputes
+    event_ms = start.elapsed_time(stop) / AST_STEPS
+    losses = torch.stack(losses).float().cpu()
+    assert torch.isfinite(losses).all(), losses
+    want = ast.layers * AST_STEPS
+    assert counts["K4"] == counts["K4 tensor"] == counts["K4 backward"] == want, counts
+    assert counts["K4 split"] == 0 and recomputes == 0, (counts, recomputes)
+    assert not any(counts[key] for key in counts if not key.startswith("K4")), counts
+    print(f"AST step: {ast.tokens} tokens, d {ast.dim}, {ast.heads} heads, {ast.layers} layers, "
+          f"batch {bs}, {train_lib.audio_tag_dtype(cfg, ast)} autocast: {event_ms:.3f} ms/step "
+          f"by CUDA events, {bs / event_ms * 1e3:.1f} clips/s; in {AST_STEPS} steps K4 "
+          f"{counts['K4']} launches (tensor-core variant {counts['K4 tensor']}, unsplit), "
+          f"{counts['K4 backward']} backward kernel calls, {recomputes} recomputes; losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB ({card})")
     return counts
 
 
@@ -3094,7 +3331,7 @@ TOOLS_BUSY_TOL = 0.15  # a trace's device total against busy_ms of the same step
 def tools_counts(total: dict) -> dict:
     """The counts since the last reset, added into ``total``."""
     counts = launch_counts()
-    for k in ("K1", "K2", "K3", "K4"):
+    for k in ("K1", "K2", "K3", "K4", "K4 backward"):
         total[k] = total.get(k, 0) + counts[k]
     return counts
 
@@ -3581,6 +3818,10 @@ def main() -> None:
     at_step = run_audio_tag_step_phase(dev, card)
     torch.cuda.empty_cache()
 
+    # 4h'. AST's audio-tag step at the published widths, batch 64: K4 and its backward
+    ast_step = run_ast_step_phase(dev, card)
+    torch.cuda.empty_cache()
+
     # 4i. the train step over several processes: DDP at world 1 (NCCL), 2 ranks (gloo)
     multi = run_multiprocess_phase(dev, card, clock_hz, latency, errs["K1"])
     torch.cuda.empty_cache()
@@ -3659,6 +3900,7 @@ def main() -> None:
     k4_shapes = {"encoder": (tokens, tokens), "cross": (lm.num_queries + 1, tokens)}
     for name, (sq, sk) in k4_shapes.items():
         timing[f"K4 {name}"] = time_k4(rng, sq, sk, dev, card, clock_hz)
+    timing["K4 backward"] = time_k4_backward(dev, card)
 
     hungarian_src = SOURCE_DIR + "hungarian_jv.cu"
     kernels = [
@@ -3730,12 +3972,22 @@ def main() -> None:
              "variant": "tensor, keys split" if name == "cross" else "tensor",
              "max_abs_err": errs[f"K4 {sq}"],
              "max_abs_err_f32": errs["K4 float32"], **timing[f"K4 {name}"]})
+    # K4's backward replaces no TPU kernel (the JAX package recomputes through
+    # a custom_vjp); on the main path in AST's training step (phase 4h'), one
+    # call for each K4 launch, 12 a step
+    kernels.append(
+        {"name": "K4 flash_attention_backward AST", "source": SOURCE_DIR + "flash_attention.cu",
+         "replaces": None, "tpu_kernel": None,
+         "shape": {"q": list(AST_K4), "kv": list(AST_K4), "dtype": "bfloat16"},
+         "launches": ast_step["K4 backward"], "launches_ast_steps": AST_STEPS,
+         "variant": "tensor: flash_bwd_dot, flash_bwd_dkdv, flash_bwd_dq",
+         "max_rel_err": errs["K4 backward"], **timing["K4 backward"]})
     for kernel in kernels:
-        # the audio-tag step and trainer run no kernel of the four (asserted above)
-        kernel.update(route="cuda", parity="ok",
-                      launches_audio_tag_step=at_step[kernel["name"].split()[0]],
-                      launches_audio_tag_chain=chain["audio_tag"][kernel["name"].split()[0]],
-                      launches_tools=tools["counts"][kernel["name"].split()[0]])
+        # the ResNet audio-tag step and trainer run no kernel of the four (asserted above)
+        key = "K4 backward" if "backward" in kernel["name"] else kernel["name"].split()[0]
+        kernel.update(route="cuda", parity="ok", launches_audio_tag_step=at_step[key],
+                      launches_audio_tag_chain=chain["audio_tag"][key],
+                      launches_tools=tools["counts"][key])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -94,6 +94,45 @@
 // Masked keys: the additive mask is -1e9 and the running maximum starts at
 // -1e30, both finite, so a row whose keys are all masked gives the plain
 // path's uniform average, never a NaN.
+//
+// ---- flash_bwd_*_kernel: the tensor-core variant's backward -----------------
+// Replaces no TPU kernel: the JAX package's gradient recomputes the plain
+// attention through a custom_vjp (ops/pallas/flash_attention.py:139), and so
+// did the port, writing and reading [B, H, Sq, Sk] f32 scores through some ten
+// elementwise passes.  Here the probabilities are recomputed tile by tile from
+// the row statistics the forward stores when asked (`stats`: the row maximum m
+// and sum l, two f32 a row; one f32 m + log l cannot carry log l where m is the
+// -1e9 mask of a clip whose keys are all padded, f32's step there being 64),
+// and no [Sq, Sk] tensor reaches device memory.  What bounds it at AST's
+// [64, 12, 1214, 64]: five products of 2 B H N^2 D, 0.732 ms at 989 TFLOP/s;
+// q, k, v, o, dout read and dq, dk, dv written in bf16, 0.29 ms at 3.35 TB/s;
+// the probabilities recomputed twice (once for dK and dV, once for dQ), 2.26 G
+// exponentials, about 0.6 ms at 16 a clock an SM.  So the products bound it,
+// with the softmax arithmetic close behind, and `mma.sync` is the first design.
+// What the design does:
+//  * flash_bwd_dot_kernel turns the forward's (m, l) into each row's constants
+//    (-m log2 e, 1 / l, D = rowsum(dout * o)) in f32, padded past Sq with
+//    values that zero a row's probabilities.  o there is the forward's f32
+//    output to 16 bits: the bf16 output plus `o_lo`, the bf16 of what its
+//    rounding lost, which the forward stores beside `stats`; with the bf16
+//    output alone D misses sum(P dP) by a bf16 rounding, a row's dS no longer
+//    sums to 0, and a key projection's bias (exact gradient 0) took
+//    lr-sized Adam moves in AST's check steps.
+//  * flash_bwd_dkdv_kernel: a block per (batch, head, 64 keys), a warp per 16
+//    keys with their K and V rows in registers as A operands; it walks the
+//    query tiles, staged as the forward stages K and V (cp.async ring,
+//    ldmatrix, 16-byte row padding).  With the keys as the rows of every
+//    product, S^T and dP^T land in the accumulator layout that is the A
+//    operand of dV += P^T dout and dK += dS^T Q, so P and dS never leave
+//    registers; each is rounded to bf16 once.  The forward's per-key term
+//    (padding bias, 0, -1e30 past the last key) is one register per row here.
+//  * flash_bwd_dq_kernel: the forward's layout (a warp per 16 query rows, Q
+//    and dout in registers, K and V tiles staged), S, dP, dS, then dQ += dS K.
+//    Seven products in all against five for an f32 atomicAdd of dQ from the
+//    dK/dV kernel, but no scratch and the same bits from run to run.
+//  * P is recomputed with the forward's own arithmetic (the same fmaf of the
+//    score, scale and term, 2^(x log2 e - m log2 e) / l), so a row whose
+//    keys are all masked gets the forward's uniform weights back.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -405,9 +444,9 @@ template <int D, int NWARPS, int MT>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ o, float* __restrict__ partial, int heads, int sq,
-                 int sk, int q_tiles, int n_splits, int keys_per_split, Strides st,
-                 float scale, int bias_vec2) {
+                 bf16* __restrict__ o, float* __restrict__ partial, float* __restrict__ stats,
+                 bf16* __restrict__ o_lo, int heads, int sq, int sk, int q_tiles, int n_splits,
+                 int keys_per_split, Strides st, float scale, int bias_vec2) {
   constexpr int BM = NWARPS * MT * 16;
   constexpr int STAGES = mma_stages<D>();
   constexpr int LD = D + kPad;  // staged row pitch in elements
@@ -742,20 +781,28 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row1 = row0 + 8;
 
     if (n_splits == 1) {
+      if (stats != nullptr && t == 0) {  // the rows' (m, l) for the backward
+        float* st0 = stats + (static_cast<long long>(bh) * sq + row0) * 2;
+        if (row0 < sq) *reinterpret_cast<float2*>(st0) = make_float2(m_run[mt][0], l0);
+        if (row1 < sq) *reinterpret_cast<float2*>(st0 + 16) = make_float2(m_run[mt][1], l1);
+      }
       const float inv0 = 1.0f / fmaxf(l0, 1.0e-30f);
       const float inv1 = 1.0f / fmaxf(l1, 1.0e-30f);
-      bf16* o0 = o + b * st.o[0] + h * st.o[1] + static_cast<long long>(row0) * st.o[2];
-      bf16* o1 = o + b * st.o[0] + h * st.o[1] + static_cast<long long>(row1) * st.o[2];
+      const long long off0 = b * st.o[0] + h * st.o[1] + static_cast<long long>(row0) * st.o[2];
+      const long long off1 = off0 + 8 * st.o[2];
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const int col = n * 8 + 2 * t;
+        unsigned hi, lo;
         if (row0 < sq) {
-          *reinterpret_cast<unsigned*>(o0 + col) =
-              pack_bf16(acc[mt][n][0] * inv0, acc[mt][n][1] * inv0);
+          split_bf16(acc[mt][n][0] * inv0, acc[mt][n][1] * inv0, hi, lo);
+          *reinterpret_cast<unsigned*>(o + off0 + col) = hi;
+          if (o_lo != nullptr) *reinterpret_cast<unsigned*>(o_lo + off0 + col) = lo;
         }
         if (row1 < sq) {
-          *reinterpret_cast<unsigned*>(o1 + col) =
-              pack_bf16(acc[mt][n][2] * inv1, acc[mt][n][3] * inv1);
+          split_bf16(acc[mt][n][2] * inv1, acc[mt][n][3] * inv1, hi, lo);
+          *reinterpret_cast<unsigned*>(o + off1 + col) = hi;
+          if (o_lo != nullptr) *reinterpret_cast<unsigned*>(o_lo + off1 + col) = lo;
         }
       }
       continue;
@@ -790,7 +837,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // sum w_i l_i.  One thread per (batch, head, row, 4 dims).
 template <int D>
 __global__ void flash_combine_kernel(const float* __restrict__ partial,
-                                     bf16* __restrict__ o, int heads, int sq, int q_tiles,
+                                     bf16* __restrict__ o, float* __restrict__ stats,
+                                     bf16* __restrict__ o_lo, int heads, int sq, int q_tiles,
                                      int n_splits, int bm, long long n_blocks,
                                      Strides st, long long total) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -819,14 +867,26 @@ __global__ void flash_combine_kernel(const float* __restrict__ partial,
     acc.z = fmaf(w, a.z, acc.z);
     acc.w = fmaf(w, a.w, acc.w);
   }
+  if (stats != nullptr && d4 == 0) {
+    *reinterpret_cast<float2*>(stats + (bh * sq + row) * 2) = make_float2(m, l);
+  }
   const float inv = 1.0f / fmaxf(l, 1.0e-30f);
-  store4(o + b * st.o[0] + h * st.o[1] + static_cast<long long>(row) * st.o[2] + d4 * 4,
-         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+  const float4 x = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  const long long off = b * st.o[0] + h * st.o[1] + static_cast<long long>(row) * st.o[2] + d4 * 4;
+  store4(o + off, x);
+  if (o_lo != nullptr) {  // what the bf16 rounding of x lost
+    const float4 r = make_float4(x.x - __bfloat162float(__float2bfloat16_rn(x.x)),
+                                 x.y - __bfloat162float(__float2bfloat16_rn(x.y)),
+                                 x.z - __bfloat162float(__float2bfloat16_rn(x.z)),
+                                 x.w - __bfloat162float(__float2bfloat16_rn(x.w)));
+    store4(o_lo + off, r);
+  }
 }
 
 template <int D, int NWARPS, int MT>
 int launch_mma(const void* q, const void* k, const void* v, const float* bias, void* o,
-               float* partial, int batch, int heads, int sq, int sk, int n_splits,
+               float* partial, float* stats, void* o_lo, int batch, int heads, int sq, int sk,
+               int n_splits,
                int keys_per_split, int bias_vec2, const Strides& st, cudaStream_t stream) {
   constexpr int BM = NWARPS * MT * 16;
   const int q_tiles = (sq + BM - 1) / BM;
@@ -836,16 +896,675 @@ int launch_mma(const void* q, const void* k, const void* v, const float* bias, v
   flash_mma_kernel<D, NWARPS, MT>
       <<<static_cast<unsigned>(blocks), NWARPS * 32, mma_smem_bytes<D>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), partial, heads, sq, sk,
-          q_tiles, n_splits, keys_per_split, st, scale, bias_vec2);
+          static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), partial, stats,
+          static_cast<bf16*>(o_lo), heads, sq, sk, q_tiles, n_splits, keys_per_split, st, scale,
+          bias_vec2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
   const long long total = static_cast<long long>(batch) * heads * sq * (D / 4);
   const int threads = 256;
   flash_combine_kernel<D><<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
-                            stream>>>(partial, static_cast<bf16*>(o), heads, sq, q_tiles,
-                                      n_splits, BM, blocks, st, total);
+                            stream>>>(partial, static_cast<bf16*>(o), stats,
+                                      static_cast<bf16*>(o_lo), heads, sq, q_tiles, n_splits,
+                                      BM, blocks, st, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ===================================================== backward, tensor cores
+
+// Element strides of the backward's tensors: q, k, v, the forward's output o,
+// its gradient dout, and the gradients dq, dk, dv (batch, head, row each; the
+// last dim is dense), then the bias (4, 0 = broadcast).
+struct BwdStrides {
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
+  long long bias[4];
+};
+
+constexpr int kBQ = 64;       // query rows per staged tile of flash_bwd_dkdv_kernel
+constexpr int kRowPad = 128;  // the row constants are padded to a multiple of this
+constexpr int kDkdvWarps = 4;  // warps of 16 keys a block of flash_bwd_dkdv_kernel
+constexpr int kDqWarps = 4;    // warps of 16 query rows a block of flash_bwd_dq_kernel
+
+// queries a warp scores at once in flash_bwd_dkdv_kernel: 16 at D 128 keep
+// K, V, dK and dV (192 registers there) beside the scores
+template <int D>
+__host__ __device__ constexpr int bwd_chunk() {
+  return D <= 64 ? 32 : 16;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dkdv_smem_bytes() {
+  return static_cast<size_t>(mma_stages<D>()) *
+         (2 * kBQ * (D + kPad) * sizeof(bf16) + kBQ * sizeof(float4));
+}
+
+// One group of D / 8 threads per row of [batch * heads, sq_pad]: the row's
+// constants for recomputing its probabilities, (ml, rl, Di) with
+// ml = -m log2 e and rl = 1 / l from the forward's (m, l) (the forward's own
+// arithmetic: p = 2^(s log2 e + ml) rl), and Di = sum over d of dout * o in
+// f32 from the forward's o + o_lo.  Di must equal the sum over
+// keys of P dP to well below a bf16 rounding: every dS row then sums to 0 as
+// softmax's does, and a key projection's bias, whose exact gradient is 0,
+// gets round-off only (from o alone its gradient is o's rounding, which
+// Adam's first steps, nearly signs, turn into lr-sized moves).  Rows past sq
+// get (-1e30, 0, 0), so that their probabilities and score gradients come
+// out 0 whatever their scores.
+template <int D>
+__global__ void flash_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ o_lo,
+                                     const bf16* __restrict__ dout,
+                                     const float* __restrict__ stats, float4* __restrict__ rowc,
+                                     int heads, int sq, int sq_pad, long long rows,
+                                     BwdStrides st) {
+  constexpr int CPR = D / 8;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long r = idx / CPR;  // whole row groups per block: the early return is theirs
+  if (r >= rows) return;
+  const int part = static_cast<int>(idx % CPR);
+  const int row = static_cast<int>(r % sq_pad);
+  const long long bh = r / sq_pad;
+  const int b = static_cast<int>(bh / heads);
+  const int h = static_cast<int>(bh % heads);
+  float dot = 0.0f;
+  if (row < sq) {
+    const long long off = b * st.o[0] + h * st.o[1] + static_cast<long long>(row) * st.o[2] +
+                          part * 8;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 r = *reinterpret_cast<const uint4*>(o_lo + off);
+    const uint4 g = *reinterpret_cast<const uint4*>(
+        dout + b * st.dout[0] + h * st.dout[1] + static_cast<long long>(row) * st.dout[2] +
+        part * 8);
+    const unsigned av[4] = {a.x, a.y, a.z, a.w};
+    const unsigned rv[4] = {r.x, r.y, r.z, r.w};
+    const unsigned gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[i]));
+      const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[i]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gv[i]));
+      dot = fmaf(x.x + xr.x, y.x, dot);
+      dot = fmaf(x.y + xr.y, y.y, dot);
+    }
+  }
+  const unsigned group = ((1u << CPR) - 1u) << ((threadIdx.x & 31) / CPR * CPR);
+#pragma unroll
+  for (int off = CPR / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(group, dot, off, CPR);
+  if (part != 0) return;
+  float4 c = make_float4(kNegInf, 0.0f, 0.0f, 0.0f);
+  if (row < sq) {
+    const float2 ml = *reinterpret_cast<const float2*>(stats + (bh * sq + row) * 2);
+    c = make_float4(-ml.x * kLog2e, 1.0f / fmaxf(ml.y, 1.0e-30f), dot, 0.0f);
+  }
+  rowc[r] = c;
+}
+
+// dK and dV: one block per (batch, head, tile of 16 NWARPS keys); a warp owns
+// 16 keys and holds their K and V rows as A operands in registers, and the
+// block walks every query tile, staged (Q, dout and the row constants) in the
+// forward's cp.async ring.  Per chunk of CQ queries a warp computes, with its
+// keys as the rows of every product:
+//   S^T = K Q^T, dP^T = V dout^T                     (two products)
+//   P^T = 2^((S^T scale + bias) log2 e + ml) rl       (the forward's arithmetic)
+//   dS^T = P^T o (dP^T - D)
+//   dV += P^T dout, dK += dS^T Q                      (two products)
+// with P^T and dS^T rounded to bf16 once, as A operands straight from the
+// accumulators.  dK is scaled once at the end.
+template <int D, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const float* __restrict__ bias,
+                      const bf16* __restrict__ dout, const float4* __restrict__ rowc,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq, int sk,
+                      int sq_pad, int k_tiles, BwdStrides st, float scale) {
+  constexpr int STAGES = mma_stages<D>();
+  constexpr int LD = D + kPad;
+  constexpr int T = NWARPS * 32;
+  constexpr int CPR = D / 8;
+  constexpr int CQ = bwd_chunk<D>();
+  constexpr int NB = CQ / 8;  // blocks of 8 queries a chunk
+  static_assert(D % 32 == 0 && CQ % 16 == 0 && kBQ % CQ == 0, "shapes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                    // [STAGES][kBQ][LD]
+  bf16* os = qs + STAGES * kBQ * LD;                                // [STAGES][kBQ][LD]
+  float4* cs = reinterpret_cast<float4*>(os + STAGES * kBQ * LD);  // [STAGES][kBQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kt = blockIdx.x % k_tiles;
+  const int bh = blockIdx.x / k_tiles;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int n_q_tiles = (sq + kBQ - 1) / kBQ;
+
+  constexpr int RSTEP = T / CPR;
+  static_assert(T % CPR == 0 && kBQ % RSTEP == 0 && T >= kBQ, "tile copy");
+  const int ld_row = tid / CPR;
+  const int ld_col = (tid % CPR) * 8;
+  const bf16* q_src = q + b * st.q[0] + h * st.q[1] + ld_col;
+  const bf16* o_src = dout + b * st.dout[0] + h * st.dout[1] + ld_col;
+  const float4* c_src = rowc + static_cast<long long>(bh) * sq_pad + tid;
+  const unsigned q_dst = smem_u32(qs + ld_row * LD + ld_col);
+  const unsigned o_dst = smem_u32(os + ld_row * LD + ld_col);
+  const unsigned c_dst = smem_u32(cs + tid);
+  auto load_tile = [&](int tile, int stage) {
+    const int q0 = tile * kBQ;
+    const unsigned stage_off = stage * kBQ * LD * sizeof(bf16);
+#pragma unroll
+    for (int i = 0; i < kBQ / RSTEP; ++i) {
+      const int row = q0 + ld_row + i * RSTEP;
+      const bool ok = row < sq;
+      const long long r = ok ? row : 0;
+      const unsigned off = stage_off + i * RSTEP * LD * sizeof(bf16);
+      cp_async16(q_dst + off, q_src + r * st.q[2], ok);
+      cp_async16(o_dst + off, o_src + r * st.dout[2], ok);
+    }
+    // the row constants are padded past sq, so every row of a tile has them
+    if (tid < kBQ) cp_async16(c_dst + stage * kBQ * sizeof(float4), c_src + q0, true);
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_q_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  // this warp's keys: r0 (fragment row g) and r1 = r0 + 8
+  const int key_lo = kt * (NWARPS * 16) + warp * 16;
+  const bool warp_live = key_lo < sk;  // warp-uniform
+  const int r0 = key_lo + g;
+  const int r1 = r0 + 8;
+  unsigned ka[D / 16][4], va[D / 16][4];
+  {
+    const bf16* k0 = k + b * st.k[0] + h * st.k[1] + static_cast<long long>(r0) * st.k[2];
+    const bf16* k1 = k + b * st.k[0] + h * st.k[1] + static_cast<long long>(r1) * st.k[2];
+    const bf16* v0 = v + b * st.v[0] + h * st.v[1] + static_cast<long long>(r0) * st.v[2];
+    const bf16* v1 = v + b * st.v[0] + h * st.v[1] + static_cast<long long>(r1) * st.v[2];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = kk * 16 + 2 * t;
+      ka[kk][0] = r0 < sk ? *reinterpret_cast<const unsigned*>(k0 + col) : 0u;
+      ka[kk][1] = r1 < sk ? *reinterpret_cast<const unsigned*>(k1 + col) : 0u;
+      ka[kk][2] = r0 < sk ? *reinterpret_cast<const unsigned*>(k0 + col + 8) : 0u;
+      ka[kk][3] = r1 < sk ? *reinterpret_cast<const unsigned*>(k1 + col + 8) : 0u;
+      va[kk][0] = r0 < sk ? *reinterpret_cast<const unsigned*>(v0 + col) : 0u;
+      va[kk][1] = r1 < sk ? *reinterpret_cast<const unsigned*>(v1 + col) : 0u;
+      va[kk][2] = r0 < sk ? *reinterpret_cast<const unsigned*>(v0 + col + 8) : 0u;
+      va[kk][3] = r1 < sk ? *reinterpret_cast<const unsigned*>(v1 + col + 8) : 0u;
+    }
+  }
+  // the forward's per-key term, here one per row: the key-padding bias, 0, or
+  // -1e30 past the last key; a full bias is read per score below
+  const float* bias_bh = bias != nullptr ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  const bool bias_full = bias != nullptr && st.bias[2] != 0;
+  float term0 = r0 < sk ? 0.0f : kNegInf;
+  float term1 = r1 < sk ? 0.0f : kNegInf;
+  if (bias != nullptr && !bias_full) {
+    if (r0 < sk) term0 = bias_bh[r0 * st.bias[3]];
+    if (r1 < sk) term1 = bias_bh[r1 * st.bias[3]];
+  }
+  const float* bias_k0 = bias_full ? bias_bh + min(r0, sk - 1) * st.bias[3] : nullptr;
+  const float* bias_k1 = bias_full ? bias_bh + min(r1, sk - 1) * st.bias[3] : nullptr;
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk_acc[n][j] = dv_acc[n][j] = 0.0f;
+  }
+  const int lm_r = lane & 7;
+  const int lm_m = lane >> 3;
+
+  for (int tile = 0; tile < n_q_tiles; ++tile) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (tile + STAGES - 1 < n_q_tiles) {
+      load_tile(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+    }
+    cp_async_commit();
+    if (!warp_live) continue;
+    const int stage = tile % STAGES;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kBQ; c0 += CQ) {
+      const int q_first = tile * kBQ + c0;
+      if (q_first >= sq) break;  // uniform: the last tile's ragged end
+      const bf16* qt = qs + (stage * kBQ + c0) * LD;
+      const bf16* ot = os + (stage * kBQ + c0) * LD;
+      const float4* ct = cs + stage * kBQ + c0;
+
+      // S^T = K Q^T and dP^T = V dout^T; a fragment of Q or dout serves 16 keys
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nb][j] = dp[nb][j] = 0.0f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < D / 32; ++kc) {
+        unsigned fb[NB][4];  // dims kc * 32 + 8 j .. + 7 of queries nb * 8 .. + 7
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          ldmatrix_x4(fb[nb], qt + (nb * 8 + lm_r) * LD + kc * 32 + lm_m * 8);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) mma_bf16(s[nb], ka[2 * kc], fb[nb][0], fb[nb][1]);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) mma_bf16(s[nb], ka[2 * kc + 1], fb[nb][2], fb[nb][3]);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          ldmatrix_x4(fb[nb], ot + (nb * 8 + lm_r) * LD + kc * 32 + lm_m * 8);
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) mma_bf16(dp[nb], va[2 * kc], fb[nb][0], fb[nb][1]);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) mma_bf16(dp[nb], va[2 * kc + 1], fb[nb][2], fb[nb][3]);
+      }
+
+      // the probabilities and the score gradients; element j of a block is
+      // key r0 (j < 2) or r1, query column 2 t + (j & 1)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float4 ca = ct[nb * 8 + 2 * t];
+        const float4 cb = ct[nb * 8 + 2 * t + 1];
+        float(&x)[4] = s[nb];
+        if (bias_full) {
+          const long long qa = min(q_first + nb * 8 + 2 * t, sq - 1);
+          const long long qb = min(q_first + nb * 8 + 2 * t + 1, sq - 1);
+          x[0] = fmaf(x[0], scale, __ldg(bias_k0 + qa * st.bias[2])) + term0;
+          x[1] = fmaf(x[1], scale, __ldg(bias_k0 + qb * st.bias[2])) + term0;
+          x[2] = fmaf(x[2], scale, __ldg(bias_k1 + qa * st.bias[2])) + term1;
+          x[3] = fmaf(x[3], scale, __ldg(bias_k1 + qb * st.bias[2])) + term1;
+        } else {
+          x[0] = fmaf(x[0], scale, term0);
+          x[1] = fmaf(x[1], scale, term0);
+          x[2] = fmaf(x[2], scale, term1);
+          x[3] = fmaf(x[3], scale, term1);
+        }
+        x[0] = ex2(fmaf(x[0], kLog2e, ca.x)) * ca.y;
+        x[1] = ex2(fmaf(x[1], kLog2e, cb.x)) * cb.y;
+        x[2] = ex2(fmaf(x[2], kLog2e, ca.x)) * ca.y;
+        x[3] = ex2(fmaf(x[3], kLog2e, cb.x)) * cb.y;
+        float(&y)[4] = dp[nb];
+        y[0] = x[0] * (y[0] - ca.z);
+        y[1] = x[1] * (y[1] - cb.z);
+        y[2] = x[2] * (y[2] - ca.z);
+        y[3] = x[3] * (y[3] - cb.z);
+      }
+
+      // dV += P^T dout and dK += dS^T Q in steps of 16 queries
+#pragma unroll
+      for (int kk = 0; kk < CQ / 16; ++kk) {
+        unsigned pa[4], da[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 16; n0 += 2) {
+          unsigned fb[2][4];  // queries kk*16 + 8 (j & 1) .., dims (n0 + i)*16 + 8 (j >> 1) ..
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            ldmatrix_x4_trans(fb[i], ot + (kk * 16 + (lm_m & 1) * 8 + lm_r) * LD +
+                                         (n0 + i) * 16 + (lm_m >> 1) * 8);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(dv_acc[2 * (n0 + i)], pa, fb[i][0], fb[i][1]);
+            mma_bf16(dv_acc[2 * (n0 + i) + 1], pa, fb[i][2], fb[i][3]);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            ldmatrix_x4_trans(fb[i], qt + (kk * 16 + (lm_m & 1) * 8 + lm_r) * LD +
+                                         (n0 + i) * 16 + (lm_m >> 1) * 8);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(dk_acc[2 * (n0 + i)], da, fb[i][0], fb[i][1]);
+            mma_bf16(dk_acc[2 * (n0 + i) + 1], da, fb[i][2], fb[i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!warp_live) return;
+
+  bf16* dk0 = dk + b * st.dk[0] + h * st.dk[1] + static_cast<long long>(r0) * st.dk[2];
+  bf16* dk1 = dk + b * st.dk[0] + h * st.dk[1] + static_cast<long long>(r1) * st.dk[2];
+  bf16* dv0 = dv + b * st.dv[0] + h * st.dv[1] + static_cast<long long>(r0) * st.dv[2];
+  bf16* dv1 = dv + b * st.dv[0] + h * st.dv[1] + static_cast<long long>(r1) * st.dv[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < sk) {
+      *reinterpret_cast<unsigned*>(dk0 + col) =
+          pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
+      *reinterpret_cast<unsigned*>(dv0 + col) = pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+    }
+    if (r1 < sk) {
+      *reinterpret_cast<unsigned*>(dk1 + col) =
+          pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
+      *reinterpret_cast<unsigned*>(dv1 + col) = pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+    }
+  }
+}
+
+// dQ: one block per (batch, head, tile of 16 NWARPS query rows), laid out as
+// the forward is: a warp holds its rows of Q and dout as A operands and their
+// row constants in registers, and the block walks every key tile, staged (K,
+// V and the per-key terms) in the forward's ring.  Per chunk of 32 keys:
+//   S = Q K^T, dP = dout V^T, P = 2^((S scale + bias) log2 e + ml) rl,
+//   dS = P o (dP - D), dQ += dS K
+// dQ is scaled once at the end.  No atomics: every dQ row is one warp's, so
+// the result is the same from run to run.
+template <int D, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ bias,
+                    const bf16* __restrict__ dout, const float4* __restrict__ rowc,
+                    bf16* __restrict__ dq, int heads, int sq, int sk, int sq_pad, int q_tiles,
+                    BwdStrides st, float scale, int bias_vec2) {
+  constexpr int BM = NWARPS * 16;
+  constexpr int STAGES = mma_stages<D>();
+  constexpr int LD = D + kPad;
+  constexpr int T = NWARPS * 32;
+  constexpr int CPR = D / 8;
+  constexpr int CK = kChunkKeys;
+  static_assert(D % 32 == 0 && kRowPad % BM == 0, "shapes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                  // [STAGES][kBN][LD]
+  bf16* vs = ks + STAGES * kBN * LD;                              // [STAGES][kBN][LD]
+  float* bs = reinterpret_cast<float*>(vs + STAGES * kBN * LD);  // [STAGES][kBN]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qt = blockIdx.x % q_tiles;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int n_tiles = (sk + kBN - 1) / kBN;
+
+  const bf16* kbase = k + b * st.k[0] + h * st.k[1];
+  const bf16* vbase = v + b * st.v[0] + h * st.v[1];
+  const float* bias_bh = bias != nullptr ? bias + b * st.bias[0] + h * st.bias[1] : nullptr;
+  const bool bias_staged = bias != nullptr && st.bias[2] == 0;
+  const bool bias_full = bias != nullptr && st.bias[2] != 0;
+
+  constexpr int RSTEP = T / CPR;
+  static_assert(T % CPR == 0 && kBN % RSTEP == 0 && T >= kBN, "tile copy");
+  const int ld_row = tid / CPR;
+  const int ld_col = (tid % CPR) * 8;
+  const bf16* k_src = kbase + ld_col;
+  const bf16* v_src = vbase + ld_col;
+  const unsigned k_dst = smem_u32(ks + ld_row * LD + ld_col);
+  const unsigned v_dst = smem_u32(vs + ld_row * LD + ld_col);
+  const unsigned b_dst = smem_u32(bs + tid);
+  auto load_tile = [&](int tile, int stage) {
+    const int k0 = tile * kBN;
+    const unsigned stage_off = stage * kBN * LD * sizeof(bf16);
+#pragma unroll
+    for (int i = 0; i < kBN / RSTEP; ++i) {
+      const int key = k0 + ld_row + i * RSTEP;
+      const bool ok = key < sk;
+      const long long row = ok ? key : 0;
+      const unsigned off = stage_off + i * RSTEP * LD * sizeof(bf16);
+      cp_async16(k_dst + off, k_src + row * st.k[2], ok);
+      cp_async16(v_dst + off, v_src + row * st.v[2], ok);
+    }
+    if (tid < kBN) {  // the forward's per-key term
+      const bool ok = k0 + tid < sk;
+      if (bias_staged && ok) {
+        cp_async4(b_dst + stage * kBN * sizeof(float), bias_bh + (k0 + tid) * st.bias[3]);
+      } else {
+        bs[stage * kBN + tid] = ok ? 0.0f : kNegInf;  // read after the next barrier
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  const int warp_row = qt * BM + warp * 16;
+  const bool warp_live = warp_row < sq;  // warp-uniform
+  const int r0 = warp_row + g;
+  const int r1 = r0 + 8;
+  unsigned qa[D / 16][4], oa[D / 16][4];
+  {
+    const bf16* q0 = q + b * st.q[0] + h * st.q[1] + static_cast<long long>(r0) * st.q[2];
+    const bf16* q1 = q + b * st.q[0] + h * st.q[1] + static_cast<long long>(r1) * st.q[2];
+    const bf16* o0 =
+        dout + b * st.dout[0] + h * st.dout[1] + static_cast<long long>(r0) * st.dout[2];
+    const bf16* o1 =
+        dout + b * st.dout[0] + h * st.dout[1] + static_cast<long long>(r1) * st.dout[2];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int col = kk * 16 + 2 * t;
+      qa[kk][0] = r0 < sq ? *reinterpret_cast<const unsigned*>(q0 + col) : 0u;
+      qa[kk][1] = r1 < sq ? *reinterpret_cast<const unsigned*>(q1 + col) : 0u;
+      qa[kk][2] = r0 < sq ? *reinterpret_cast<const unsigned*>(q0 + col + 8) : 0u;
+      qa[kk][3] = r1 < sq ? *reinterpret_cast<const unsigned*>(q1 + col + 8) : 0u;
+      oa[kk][0] = r0 < sq ? *reinterpret_cast<const unsigned*>(o0 + col) : 0u;
+      oa[kk][1] = r1 < sq ? *reinterpret_cast<const unsigned*>(o1 + col) : 0u;
+      oa[kk][2] = r0 < sq ? *reinterpret_cast<const unsigned*>(o0 + col + 8) : 0u;
+      oa[kk][3] = r1 < sq ? *reinterpret_cast<const unsigned*>(o1 + col + 8) : 0u;
+    }
+  }
+  // rows past sq read their padded constants, which zero their probabilities
+  const float4 c0 = rowc[static_cast<long long>(bh) * sq_pad + r0];
+  const float4 c1 = rowc[static_cast<long long>(bh) * sq_pad + r1];
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.0f;
+  }
+  const float column_scale = bias_full ? 1.0f : scale;  // as in the forward
+  const int lm_r = lane & 7;
+  const int lm_m = lane >> 3;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (tile + STAGES - 1 < n_tiles) {
+      load_tile(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+    }
+    cp_async_commit();
+    if (!warp_live) continue;
+    const int stage = tile % STAGES;
+    const float* bt = bs + stage * kBN;
+
+#pragma unroll 1
+    for (int cc = 0; cc < kBN; cc += CK) {
+      const int k0 = tile * kBN + cc;
+      if (k0 >= sk) break;  // uniform: the tile's ragged end
+      const bf16* kt = ks + (stage * kBN + cc) * LD;
+      const bf16* vt = vs + (stage * kBN + cc) * LD;
+
+      // S = Q K^T and dP = dout V^T; a K or V fragment serves the warp's 16 rows
+      float s[CK / 8][4], dp[CK / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < CK / 8; ++nb) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nb][j] = dp[nb][j] = 0.0f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < D / 32; ++kc) {
+        unsigned fb[CK / 8][4];  // dims kc * 32 + 8 j .. + 7 of keys nb * 8 .. + 7
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) {
+          ldmatrix_x4(fb[nb], kt + (nb * 8 + lm_r) * LD + kc * 32 + lm_m * 8);
+        }
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) mma_bf16(s[nb], qa[2 * kc], fb[nb][0], fb[nb][1]);
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) {
+          mma_bf16(s[nb], qa[2 * kc + 1], fb[nb][2], fb[nb][3]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) {
+          ldmatrix_x4(fb[nb], vt + (nb * 8 + lm_r) * LD + kc * 32 + lm_m * 8);
+        }
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) mma_bf16(dp[nb], oa[2 * kc], fb[nb][0], fb[nb][1]);
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) {
+          mma_bf16(dp[nb], oa[2 * kc + 1], fb[nb][2], fb[nb][3]);
+        }
+      }
+
+      // scale, bias and the ragged edge as in the forward, then P and dS
+      if (bias_full) {
+        const float* bias_r0 = bias_bh + static_cast<long long>(min(r0, sq - 1)) * st.bias[2];
+        const float* bias_r1 = bias_bh + static_cast<long long>(min(r1, sq - 1)) * st.bias[2];
+#pragma unroll
+        for (int nb = 0; nb < CK / 8; ++nb) {
+          const int col = k0 + nb * 8 + 2 * t;
+          float b00 = 0.0f, b01 = 0.0f, b10 = 0.0f, b11 = 0.0f;
+          if (bias_vec2 && col + 1 < sk) {
+            const float2 x0 = __ldg(reinterpret_cast<const float2*>(bias_r0 + col));
+            const float2 x1 = __ldg(reinterpret_cast<const float2*>(bias_r1 + col));
+            b00 = x0.x;
+            b01 = x0.y;
+            b10 = x1.x;
+            b11 = x1.y;
+          } else {
+            if (col < sk) {
+              b00 = __ldg(bias_r0 + col * st.bias[3]);
+              b10 = __ldg(bias_r1 + col * st.bias[3]);
+            }
+            if (col + 1 < sk) {
+              b01 = __ldg(bias_r0 + (col + 1) * st.bias[3]);
+              b11 = __ldg(bias_r1 + (col + 1) * st.bias[3]);
+            }
+          }
+          float(&x)[4] = s[nb];
+          x[0] = fmaf(x[0], scale, b00);
+          x[1] = fmaf(x[1], scale, b01);
+          x[2] = fmaf(x[2], scale, b10);
+          x[3] = fmaf(x[3], scale, b11);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < CK / 8; ++nb) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + cc + nb * 8 + 2 * t);
+        float(&x)[4] = s[nb];
+        x[0] = ex2(fmaf(fmaf(x[0], column_scale, bb.x), kLog2e, c0.x)) * c0.y;
+        x[1] = ex2(fmaf(fmaf(x[1], column_scale, bb.y), kLog2e, c0.x)) * c0.y;
+        x[2] = ex2(fmaf(fmaf(x[2], column_scale, bb.x), kLog2e, c1.x)) * c1.y;
+        x[3] = ex2(fmaf(fmaf(x[3], column_scale, bb.y), kLog2e, c1.x)) * c1.y;
+        float(&y)[4] = dp[nb];
+        y[0] = x[0] * (y[0] - c0.z);
+        y[1] = x[1] * (y[1] - c0.z);
+        y[2] = x[2] * (y[2] - c1.z);
+        y[3] = x[3] * (y[3] - c1.z);
+      }
+
+      // dQ += dS K in steps of 16 keys
+#pragma unroll
+      for (int kk = 0; kk < CK / 16; ++kk) {
+        unsigned da[4];
+        da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 16; n0 += 2) {
+          unsigned fb[2][4];  // keys kk*16 + 8 (j & 1) .., dims (n0 + i)*16 + 8 (j >> 1) ..
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            ldmatrix_x4_trans(fb[i], kt + (kk * 16 + (lm_m & 1) * 8 + lm_r) * LD +
+                                         (n0 + i) * 16 + (lm_m >> 1) * 8);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(dq_acc[2 * (n0 + i)], da, fb[i][0], fb[i][1]);
+            mma_bf16(dq_acc[2 * (n0 + i) + 1], da, fb[i][2], fb[i][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!warp_live) return;
+
+  bf16* d0 = dq + b * st.dq[0] + h * st.dq[1] + static_cast<long long>(r0) * st.dq[2];
+  bf16* d1 = dq + b * st.dq[0] + h * st.dq[1] + static_cast<long long>(r1) * st.dq[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (r0 < sq) {
+      *reinterpret_cast<unsigned*>(d0 + col) =
+          pack_bf16(dq_acc[n][0] * scale, dq_acc[n][1] * scale);
+    }
+    if (r1 < sq) {
+      *reinterpret_cast<unsigned*>(d1 + col) =
+          pack_bf16(dq_acc[n][2] * scale, dq_acc[n][3] * scale);
+    }
+  }
+}
+
+// The three backward kernels in turn on one stream: the row constants, then
+// dK and dV, then dQ.
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const float* bias, const void* o,
+               const void* o_lo, const void* dout, const float* stats, float* rowc, void* dq,
+               void* dk, void* dv,
+               int batch, int heads, int sq, int sk, int sq_pad, int bias_vec2,
+               const BwdStrides& st, cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const long long bh = static_cast<long long>(batch) * heads;
+  const long long rows = bh * sq_pad;
+  const int threads = 256;
+  const long long dot_blocks = (rows * (D / 8) + threads - 1) / threads;
+  const long long k_tiles = (sk + kDkdvWarps * 16 - 1) / (kDkdvWarps * 16);
+  const long long q_tiles = (sq + kDqWarps * 16 - 1) / (kDqWarps * 16);
+  if (dot_blocks > 0x7fffffffLL || bh * k_tiles > 0x7fffffffLL || bh * q_tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float4* rc = reinterpret_cast<float4*>(rowc);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* gb = static_cast<const bf16*>(dout);
+  flash_bwd_dot_kernel<D><<<static_cast<unsigned>(dot_blocks), threads, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(o_lo), gb, stats, rc, heads, sq,
+      sq_pad, rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<D, kDkdvWarps>
+      <<<static_cast<unsigned>(bh * k_tiles), kDkdvWarps * 32, dkdv_smem_bytes<D>(), stream>>>(
+          qb, kb, vb, bias, gb, rc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, sq,
+          sk, sq_pad, static_cast<int>(k_tiles), st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<D, kDqWarps>
+      <<<static_cast<unsigned>(bh * q_tiles), kDqWarps * 32, mma_smem_bytes<D>(), stream>>>(
+          qb, kb, vb, bias, gb, rc, static_cast<bf16*>(dq), heads, sq, sk, sq_pad,
+          static_cast<int>(q_tiles), st, scale, bias_vec2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+cudaError_t raise_bwd_smem_limits() {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, kDkdvWarps>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(dkdv_smem_bytes<D>()));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kDqWarps>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(mma_smem_bytes<D>()));
 }
 
 template <int D, int NWARPS, int MT>
@@ -874,6 +1593,9 @@ extern "C" int sedt_flash_init() {
   if (err == cudaSuccess) err = raise_smem_limit<D, W, MT>();
   SEDT_MMA_INSTANCES(SEDT_MMA_RAISE)
 #undef SEDT_MMA_RAISE
+  if (err == cudaSuccess) err = raise_bwd_smem_limits<32>();
+  if (err == cudaSuccess) err = raise_bwd_smem_limits<64>();
+  if (err == cudaSuccess) err = raise_bwd_smem_limits<128>();
   return static_cast<int>(err);
 }
 
@@ -919,11 +1641,16 @@ extern "C" int sedt_flash_attention(const void* q, const void* k, const void* v,
 // ranges of keys_per_split keys (a multiple of 64; every range holds at least
 // one key).  partial: f32 scratch of blocks * rows * (d + 2) values where
 // blocks = batch * heads * ceil(sq / rows) * n_splits, or null when n_splits
-// is 1.  bias_vec2: nonzero when a full bias may be read as float2 (key
+// is 1.  stats: null, or f32 [batch, heads, sq, 2] that receives every row's
+// (m, l), the maximum of its scaled and biased scores and the sum of
+// exp(s - m), for the backward; o_lo: null, or bf16 laid out as o, which
+// receives what rounding the f32 output to o lost (o + o_lo carries 16 bits).
+// bias_vec2: nonzero when a full bias may be read as float2 (key
 // stride 1, the other strides even, an 8-byte-aligned address).
 extern "C" int sedt_flash_attention_mma(const void* q, const void* k, const void* v,
                                         const float* bias, void* o, float* partial,
-                                        int batch, int heads, int sq, int sk, int d,
+                                        float* stats, void* o_lo, int batch, int heads, int sq,
+                                        int sk, int d,
                                         int rows, int n_splits, int keys_per_split,
                                         int bias_vec2, const long long* strides,
                                         void* stream) {
@@ -945,10 +1672,65 @@ extern "C" int sedt_flash_attention_mma(const void* q, const void* k, const void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SEDT_MMA_CASE(D, ROWS, W, MT)                                                   \
   if (d == D && rows == ROWS) {                                                          \
-    return launch_mma<D, W, MT>(q, k, v, bias, o, partial, batch, heads, sq, sk,         \
+    return launch_mma<D, W, MT>(q, k, v, bias, o, partial, stats, o_lo, batch, heads, sq, sk, \
                                 n_splits, keys_per_split, bias_vec2, st, s);             \
   }
   SEDT_MMA_INSTANCES(SEDT_MMA_CASE)
 #undef SEDT_MMA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launches the backward of the tensor-core variant on `stream` (three
+// kernels: flash_bwd_dot_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel)
+// and returns the first cudaGetLastError() that is not success, as an int.
+//
+// q, k, v as for sedt_flash_attention_mma; o, the forward's output, o_lo, what
+// its rounding lost, and dout, its gradient, like q, on 16-byte boundaries
+// with batch, head and row strides that are multiples of 8 elements (o_lo
+// with o's strides); dq, dk, dv like q, k, v with row strides
+// and addresses that keep 2 elements aligned.  bias: as for the forward (it
+// gets no gradient here).  stats: the forward's f32 [batch, heads, sq, 2]
+// (m, l).  rowc: f32 scratch of batch * heads * sq_pad * 4 values on a 16-byte
+// boundary, sq_pad sq rounded up to a multiple of kRowPad (any other value is
+// refused, so the wrapper's ROW_PAD cannot drift from kRowPad unnoticed).  strides is a host array
+// of 28: q, k, v, o, dout, dq, dk, dv (3 each), then the bias (4).  d is 32,
+// 64 or 128.
+extern "C" int sedt_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                        const float* bias, const void* o, const void* o_lo,
+                                        const void* dout,
+                                        const float* stats, float* rowc, void* dq, void* dk,
+                                        void* dv, int batch, int heads, int sq, int sk, int d,
+                                        int sq_pad, int bias_vec2, const long long* strides,
+                                        void* stream) {
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 ||
+      sq_pad != (sq + kRowPad - 1) / kRowPad * kRowPad ||
+      o_lo == nullptr || stats == nullptr || rowc == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BwdStrides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+    st.dout[i] = strides[12 + i];
+    st.dq[i] = strides[15 + i];
+    st.dk[i] = strides[18 + i];
+    st.dv[i] = strides[21 + i];
+  }
+  for (int i = 0; i < 4; ++i) st.bias[i] = strides[24 + i];
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch_bwd<32>(q, k, v, bias, o, o_lo, dout, stats, rowc, dq, dk, dv, batch, heads,
+                            sq, sk, sq_pad, bias_vec2, st, s);
+    case 64:
+      return launch_bwd<64>(q, k, v, bias, o, o_lo, dout, stats, rowc, dq, dk, dv, batch, heads,
+                            sq, sk, sq_pad, bias_vec2, st, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, bias, o, o_lo, dout, stats, rowc, dq, dk, dv, batch, heads,
+                             sq, sk, sq_pad, bias_vec2, st, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -22,10 +22,20 @@ back in the input type.  The ``[Sq, Sk]`` scores are never written out.
   be dense) and the bias through its broadcast strides.
 * On CPU tensors it runs :func:`flash_attention_plain`, the same blockwise
   arithmetic in PyTorch.
-* The gradient, as in the JAX package, has no kernel: the backward recomputes
-  :func:`reference_attention`, the plain non-flash math, and differentiates
-  that, so training through the kernel gets the non-flash path's gradients.
-  Each backward counts into ``flash_attention.recomputes`` and runs in the
+* The gradient.  A forward that will be differentiated keeps each row's
+  statistics (``stats``, f32 ``[B, H, Sq, 2]``: the maximum ``m`` of the
+  row's scaled and biased scores and ``l``, the sum of ``exp(s - m)``), and
+  the backward recomputes the probabilities block by block from them, as
+  FlashAttention 2 does, never writing an ``[Sq, Sk]`` tensor.  On CUDA
+  tensors that took the tensor-core variant, with no bias or one that needs
+  no gradient, it launches the backward kernels of ``csrc/flash_attention.cu``
+  (:func:`flash_attention_backward`; each call counts into
+  ``flash_attention.backward_launches``).  On CPU tensors it runs
+  :func:`flash_attention_backward_plain`, the same arithmetic in PyTorch.
+  What is left, the f32-core variant and, on either device, a bias that
+  needs a gradient, recomputes :func:`reference_attention` and
+  differentiates that, as the JAX package does, counted in
+  ``flash_attention.recomputes``.  Every backward runs in the
   span ``attention.backward``, a range on autograd's thread too.
 """
 from __future__ import annotations
@@ -45,6 +55,7 @@ BLOCK_K = 128  # key block of the plain version
 HEAD_DIMS = (16, 32, 64, 128)  # what the f32-core kernel is compiled for
 TENSOR_HEAD_DIMS = (32, 64, 128)  # what the tensor-core kernel is compiled for
 TILE_K = 64  # keys per staged tile of the tensor-core kernel
+ROW_PAD = 128  # the backward's row constants are padded to a multiple of this (kRowPad)
 SPLIT_WAVES = 2  # a split aims at this many blocks per SM
 _VEC = 4  # elements per vector load in the f32-core kernel
 _VEC_TENSOR = 8  # bf16 per 16-byte asynchronous copy in the tensor-core kernel
@@ -63,9 +74,12 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
-                          block_k: int = BLOCK_K) -> torch.Tensor:
+                          block_k: int = BLOCK_K, with_stats: bool = False):
     """The plain PyTorch version of K4, on any device: a loop over key blocks
-    with the running (max, sum, accumulator) in f32."""
+    with the running (max, sum, accumulator) in f32.  ``with_stats`` returns
+    ``(out, stats)``, stats the f32 ``[B, H, Sq, 2]`` of each row's maximum
+    ``m`` and sum ``l`` of ``exp(s - m)`` (``m + log l`` is the row's
+    log-sum-exp)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     qf = q.float() * (1.0 / math.sqrt(d))
@@ -86,7 +100,43 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p, vb)
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return (out, torch.cat([m, l], dim=-1)) if with_stats else out
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   bias: Optional[torch.Tensor], out: torch.Tensor,
+                                   stats: torch.Tensor, grad_out: torch.Tensor):
+    """The plain PyTorch version of K4's backward, on any device: the
+    probabilities recomputed key block by key block from the forward's
+    ``stats`` (``p = exp(s - m) / l``, ``s`` scored as
+    :func:`flash_attention_plain` scores it), ``D = rowsum(grad_out * out)``,
+    ``dS = p (dP - D)``, everything in f32.  Returns ``(dq, dk, dv)`` in the
+    inputs' type; the bias gets no gradient."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float() * scale
+    g = grad_out.float()
+    if bias is not None:
+        full_bias = bias.float().expand(b, h, sq, sk)
+    m, l = stats[..., :1], stats[..., 1:].clamp_min(1e-30)
+    delta = (g * out.float()).sum(dim=-1, keepdim=True)
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, sk, BLOCK_K):
+        sl = slice(k0, k0 + BLOCK_K)
+        kb, vb = k[:, :, sl].float(), v[:, :, sl].float()
+        s = torch.matmul(qf, kb.transpose(-1, -2))
+        if bias is not None:
+            s = s + full_bias[..., sl]
+        p = torch.exp(s - m) / l
+        dv[:, :, sl] = torch.matmul(p.transpose(-1, -2), g)
+        ds = p * (torch.matmul(g, vb.transpose(-1, -2)) - delta)
+        dq += torch.matmul(ds, kb)
+        dk[:, :, sl] = torch.matmul(ds.transpose(-1, -2), qf)
+    return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,9 +244,13 @@ def _library() -> ctypes.CDLL:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     lib.sedt_flash_attention.restype = ctypes.c_int
     lib.sedt_flash_attention_mma.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     lib.sedt_flash_attention_mma.restype = ctypes.c_int
+    lib.sedt_flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    lib.sedt_flash_attention_bwd.restype = ctypes.c_int
     lib.sedt_flash_init.argtypes = []
     lib.sedt_flash_init.restype = ctypes.c_int
     return lib
@@ -237,17 +291,36 @@ def _check_inputs(q, k, v, bias) -> None:
         bias.expand(b, h, sq, sk)  # raises unless broadcastable
 
 
-def _launch(q, k, v, bias) -> torch.Tensor:
-    """Launch the kernel :func:`kernel_variant` names."""
+def _bias_args(bias, shape):
+    """The bias's pointer, its four broadcast strides, and whether a full bias
+    may be read two floats at a time (key stride 1, the others even, an
+    8-byte-aligned address)."""
+    if bias is None:
+        return None, [0] * 4, False
+    strides = list(bias.expand(shape).stride())
+    vec2 = (strides[3] == 1 and bias.data_ptr() % 8 == 0 and not any(x % 2 for x in strides[:3]))
+    return bias.data_ptr(), strides, vec2
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _launch(q, k, v, bias, with_stats: bool = False):
+    """Launch the kernel :func:`kernel_variant` names; returns the output and
+    what the backward kernels keep of the forward: where ``with_stats`` and
+    the tensor-core variant ran, the rows' f32 ``[B, H, Sq, 2]`` (m, l) and
+    ``out_lo``, what rounding the f32 output to the output's type lost, else
+    two Nones."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     variant = kernel_variant(q.dtype, d, [(t.stride(), t.data_ptr()) for t in (q, k, v)])
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    stats = out_lo = None
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]]
-    bias_strides = [0] * 4 if bias is None else list(bias.expand(b, h, sq, sk).stride())
+    bias_ptr, bias_strides, vec2 = _bias_args(bias, (b, h, sq, sk))
     strides = (ctypes.c_longlong * 16)(*strides, *bias_strides)
-    bias_ptr = None if bias is None else bias.data_ptr()
-    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    index = _device_index(q)
     lib, sms = _device(index)
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -259,11 +332,14 @@ def _launch(q, k, v, bias) -> torch.Tensor:
             if n_splits > 1:
                 partial = torch.empty(blocks * n_splits * rows * (d + 2), dtype=torch.float32,
                                       device=q.device)
-            vec2 = (bias is not None and bias_strides[3] == 1 and bias.data_ptr() % 8 == 0
-                    and not any(s % 2 for s in bias_strides[:3]))
+            if with_stats:
+                stats = torch.empty((b, h, sq, 2), dtype=torch.float32, device=q.device)
+                out_lo = torch.empty_like(out)
             err = lib.sedt_flash_attention_mma(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
-                None if partial is None else partial.data_ptr(), b, h, sq, sk, d, rows,
+                None if partial is None else partial.data_ptr(),
+                None if stats is None else stats.data_ptr(),
+                None if out_lo is None else out_lo.data_ptr(), b, h, sq, sk, d, rows,
                 n_splits, keys_per_split, int(vec2), strides, stream)
         else:
             err = lib.sedt_flash_attention(
@@ -277,48 +353,125 @@ def _launch(q, k, v, bias) -> torch.Tensor:
         flash_attention.launches_split += n_splits > 1
     else:
         flash_attention.launches_f32 += 1
-    return out
+    return out, stats, out_lo
 
 
-def _forward(q, k, v, bias) -> torch.Tensor:
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the backward kernels can read its rows in 16-byte
+    copies (dense last dim, other strides multiples of 8, a 16-byte-aligned
+    address), else a contiguous copy."""
+    if t.stride(3) == 1 and not any(x % 8 for x in t.stride()[:3]) and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: Optional[torch.Tensor], out: torch.Tensor,
+                             stats: torch.Tensor, grad_out: torch.Tensor,
+                             out_lo: torch.Tensor):
+    """``(dq, dk, dv)`` of the tensor-core variant's forward on CUDA tensors
+    through the backward kernels (no gradient for the bias): ``out``,
+    ``stats`` and ``out_lo`` are what that forward returned (:func:`_launch`
+    with ``with_stats``), ``grad_out`` the output's gradient.  Each row's
+    ``D = rowsum(grad_out * (out + out_lo))``: from ``out`` alone, as
+    FlashAttention 2 takes it, D would carry the output's bf16 rounding and a
+    row's score gradients would no longer sum to 0.  Raises for inputs the
+    tensor-core variant does not take."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if kernel_variant(q.dtype, d, [(t.stride(), t.data_ptr()) for t in (q, k, v)]) != "tensor":
+        raise ValueError("the backward kernels take the tensor-core variant's inputs only")
+    if stats.shape != (b, h, sq, 2) or stats.dtype != torch.float32 or not stats.is_contiguous():
+        raise ValueError(f"stats must be a contiguous f32 [B, H, Sq, 2], got {tuple(stats.shape)}")
+    for name, t in (("out", out), ("out_lo", out_lo)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and shaped and typed as q")
+    grad_out = _aligned_rows(grad_out.to(q.dtype))
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, h, sk, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    sq_pad = -(-sq // ROW_PAD) * ROW_PAD
+    rowc = torch.empty(b * h * sq_pad * 4, dtype=torch.float32, device=q.device)
+    bias_ptr, bias_strides, vec2 = _bias_args(bias, (b, h, sq, sk))
+    strides = [x for t in (q, k, v, out, grad_out, dq, dk, dv) for x in t.stride()[:3]]
+    strides = (ctypes.c_longlong * 28)(*strides, *bias_strides)
+    index = _device_index(q)
+    lib, _ = _device(index)
+    with torch.cuda.device(index):
+        err = lib.sedt_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
+            out_lo.data_ptr(), grad_out.data_ptr(),
+            stats.data_ptr(), rowc.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, sq_pad, int(vec2), strides,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel K4's backward launch failed: cudaError {err}")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, bias, with_stats: bool):
+    """The output and what the blockwise backward keeps besides the inputs:
+    the output, its row statistics and, from the kernel, ``out_lo``; or
+    nothing, where the backward will recompute."""
     _check_inputs(q, k, v, bias)
+    # a bias that needs a gradient takes the recompute, which needs no stats
+    with_stats = with_stats and not (bias is not None and bias.requires_grad)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias)
+        if with_stats:
+            out, stats = flash_attention_plain(q, k, v, bias, with_stats=True)
+            return out, (out, stats)
+        return flash_attention_plain(q, k, v, bias), ()
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k, v, bias)
+    out, stats, out_lo = _launch(q, k, v, bias, with_stats)
+    return out, (() if stats is None else (out, stats, out_lo))
+
+
+def _recompute(q, k, v, bias, wants_bias: bool, grad_out):
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        bd = bias.detach().requires_grad_() if wants_bias else bias
+        out = reference_attention(qd, kd, vd, bd)
+    grads = torch.autograd.grad(out, [qd, kd, vd] + ([bd] if wants_bias else []), grad_out)
+    flash_attention.recomputes += 1
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias):
-        ctx.save_for_backward(q, k, v, bias)  # the inputs only, no [Sq, Sk] tensor
-        return _forward(q, k, v, bias)
+    def forward(ctx, q, k, v, bias, with_stats):
+        out, kept = _forward(q, k, v, bias, with_stats)
+        ctx.save_for_backward(q, k, v, bias, *kept)  # no [Sq, Sk] tensor
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, *kept = ctx.saved_tensors
         wants_bias = bias is not None and ctx.needs_input_grad[3]
-        flash_attention.recomputes += 1
         with annotate("attention.backward", any_thread=True):
-            with torch.enable_grad():
-                qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-                bd = bias.detach().requires_grad_() if wants_bias else bias
-                out = reference_attention(qd, kd, vd, bd)
-            grads = torch.autograd.grad(out, [qd, kd, vd] + ([bd] if wants_bias else []),
-                                        grad_out)
-        return (*grads, None) if not wants_bias else grads
+            if not kept:
+                grads = _recompute(q, k, v, bias, wants_bias, grad_out)
+            elif q.device.type == "cpu":
+                grads = flash_attention_backward_plain(q, k, v, bias, *kept, grad_out)
+            else:
+                out, stats, out_lo = kept
+                grads = flash_attention_backward(q, k, v, bias, out, stats, grad_out, out_lo)
+        return (*grads, None) if wants_bias else (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, Sq, D] attention through kernel K4 (its plain version on the
     CPU); differentiable with respect to q, k, v and the bias."""
-    return _FlashAttention.apply(q, k, v, bias)
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias))
+    return _FlashAttention.apply(q, k, v, bias, grad)
 
 
-flash_attention.launches = 0  # every kernel launch, whichever variant
+flash_attention.launches = 0  # every forward kernel launch, whichever variant
 flash_attention.launches_tensor = 0  # of those, the tensor-core variant's
 flash_attention.launches_f32 = 0  # and the f32-core variant's
 flash_attention.launches_split = 0  # tensor-core launches that split the keys
-flash_attention.recomputes = 0  # backward calls, each a recompute of the plain attention
+flash_attention.backward_launches = 0  # backward calls through the backward kernels
+flash_attention.recomputes = 0  # backward calls that recomputed the plain attention

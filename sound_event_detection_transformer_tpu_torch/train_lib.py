@@ -1646,11 +1646,13 @@ def train_audio_tag_epoch(step, dataset, index_batches: Sequence[Sequence[int]],
     return acc, timer
 
 
-def k4_summary(launches0: int, recomputes0: int, steps: int) -> str:
-    """Kernel K4's forward launches and backward recomputes a step since the
-    counts ``launches0`` and ``recomputes0``."""
+def k4_summary(launches0: int, backward0: int, recomputes0: int, steps: int) -> str:
+    """Kernel K4's forward launches, backward kernel calls and backward
+    recomputes a step since the counts ``launches0``, ``backward0`` and
+    ``recomputes0``."""
     per = lambda n: n / max(steps, 1)
     return (f"K4 a step: {per(flash_attention.launches - launches0):.1f} launches, "
+            f"{per(flash_attention.backward_launches - backward0):.1f} backward kernels, "
             f"{per(flash_attention.recomputes - recomputes0):.1f} recomputes")
 
 
@@ -1740,7 +1742,8 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
         record: Dict = {"epoch": epoch}
         epochs.append(record)
         t0, folds0 = time.time(), FOLDS.copy()
-        k4 = flash_attention.launches, flash_attention.recomputes
+        k4 = (flash_attention.launches, flash_attention.backward_launches,
+              flash_attention.recomputes)
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc, timer = train_audio_tag_epoch(step, train_data, index_batches, dev)

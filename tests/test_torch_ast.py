@@ -73,6 +73,14 @@ def both_sides(geometry, batch=3, seed=11):
     return model, weights, m, x, y
 
 
+def backward_calls():
+    """(K4 backward calls, recomputes): every backward opens the
+    ``attention.backward`` span; on the CPU it runs the plain blockwise
+    backward, so no call recomputes."""
+    return (profiler.SPANS.totals().get("attention.backward", (0, 0.0))[0],
+            fa.flash_attention.recomputes)
+
+
 def close(got, want, rel):
     scale = want.abs().max().clamp(min=1e-30)
     assert float((got - want).abs().max() / scale) < rel
@@ -84,11 +92,11 @@ def test_logits_and_gradients_match_the_reference(geometry, use_flash, monkeypat
     if use_flash:
         force_k4(monkeypatch)
     model, weights, m, x, y = both_sides(geometry)
-    before = fa.flash_attention.recomputes
+    calls, recomputes = backward_calls()
     logits = model(x)
     loss = torch.nn.functional.binary_cross_entropy_with_logits(logits, y)
     loss.backward()
-    assert fa.flash_attention.recomputes - before == (m["layers"] if use_flash else 0)
+    assert backward_calls() == (calls + (m["layers"] if use_flash else 0), recomputes)
     leaves = {n: w.clone().requires_grad_(True) for n, w in weights.items()}
     ref = RA.forward(leaves, x, m)
     ref_loss = torch.nn.functional.binary_cross_entropy_with_logits(ref, y)
@@ -183,13 +191,13 @@ def test_ast_epoch_on_synthetic_clips(tmp_path, monkeypatch):
     into AST."""
     monkeypatch.setattr(train_lib, "AUDIOSET", ASTConfig(**SMALL))
     force_k4(monkeypatch)
-    before = fa.flash_attention.recomputes
+    calls, recomputes = backward_calls()
     argv = ["--at_model", "ast", "--synthetic_smoke", "--smoke_clips", "8", "--batch_size", "4", "--epochs", "2", "--log",
             "--exp_root", str(tmp_path / "exp")]
     result = cli.main_at(argv, device="cpu")
     assert [e["steps"] for e in result.epochs] == [2, 2]
     assert all(np.isfinite(e["loss"]) for e in result.epochs)
-    assert fa.flash_attention.recomputes - before == 2 * 2 * SMALL["layers"]
+    assert backward_calls() == (calls + 2 * 2 * SMALL["layers"], recomputes)
     assert result.checkpoint.endswith("at_ast_dcase")
     state = torch.load(result.checkpoint, weights_only=False)["model"]
     AST(ASTConfig(**SMALL)).load_state_dict(state, strict=True)
@@ -224,11 +232,11 @@ def test_halving_schedule():
 
 def test_k4_backward_counts_and_opens_its_span():
     q, k, v = (torch.randn(1, 2, 8, 16, requires_grad=True) for _ in range(3))
-    before = fa.flash_attention.recomputes
-    spans = profiler.SPANS.totals().get("attention.backward", (0, 0.0))[0]
+    calls, recomputes = backward_calls()
+    launches = fa.flash_attention.backward_launches
     fa.flash_attention(q, k, v).sum().backward()
-    assert fa.flash_attention.recomputes == before + 1
-    assert profiler.SPANS.totals()["attention.backward"][0] == spans + 1
+    assert backward_calls() == (calls + 1, recomputes)  # the plain backward on the CPU
+    assert fa.flash_attention.backward_launches == launches
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         fa.flash_attention(q, k, v).sum().backward()
     assert any(e.name == "attention.backward" for e in prof.events())

@@ -6,10 +6,15 @@ and ``chip_smoke.py``.
 
 Tolerances: forward 1e-5 in f32 (both sides keep an f32 running maximum, sum
 and accumulator and differ only in the order of the sums); gradients 1e-4
-(the backward recomputes the non-flash math, whose [Sq, Sk] products sum in
-another order on the two sides); bf16 inputs one bf16 rounding of the output
-(1e-2) against the plain version, bf16-level (3e-2) against the non-flash
-path, which rounds the probabilities to bf16 before the second product."""
+against JAX's (the wrapper's backward is the plain blockwise one from the
+forward's row statistics, JAX's recomputes the non-flash math: the [Sq, Sk]
+products sum in other orders), the plain backward 1e-5 of the largest
+gradient against autograd through the port's non-flash math; bf16 inputs
+one bf16 rounding of the output (1e-2) against the plain version,
+bf16-level (3e-2) against the non-flash path, which rounds the
+probabilities to bf16 before the second product."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +36,7 @@ from sound_event_detection_transformer_tpu_torch.ops.attention import (
     make_key_padding_bias,
     scaled_dot_attention,
 )
+from sound_event_detection_transformer_tpu_torch.utils import profiler
 
 torch.set_num_threads(2)
 S = FLASH_MIN_SEQ + 8  # ragged: not a multiple of the key block
@@ -48,6 +54,10 @@ def _inputs(seed, b, h, sq, sk, d, bias_kind):
     else:
         bias = np.array(jmake_bias(jnp.asarray(rs.rand(b, sk) < 0.2)))  # a writable copy
     return q, k, v, bias
+
+
+def _ids_of(shape):
+    return "x".join(map(str, shape))
 
 
 def _t(x):
@@ -274,3 +284,109 @@ def test_hi_lo_split_of_the_probabilities_keeps_f32_accuracy():
     assert float((two - exact).abs().max()) <= 2e-5 * scale
     assert float((one - exact).abs().max()) > 1e-4 * scale  # a single rounding is not enough
     np.testing.assert_allclose((hi.float() + lo.float()).numpy(), p.numpy(), rtol=2e-5, atol=0)
+
+
+def _padding_with_a_dead_clip(rs, b, sk):
+    """A key-padding bias whose clip 0 has every key padded."""
+    pad = rs.rand(b, sk) < 0.3
+    pad[0] = True
+    return make_key_padding_bias(torch.from_numpy(pad))
+
+
+def _bias(rs, kind, b, h, sq, sk):
+    if kind == "none":
+        return None
+    if kind == "full":
+        return torch.from_numpy(rs.randn(b, h, sq, sk).astype(np.float32))
+    return _padding_with_a_dead_clip(rs, b, sk)
+
+
+def _rel_close(got, want, rel):
+    scale = want.abs().max().clamp_min(1e-30)
+    assert float((got - want).abs().max() / scale) < rel
+
+
+@pytest.mark.parametrize("d", [16, 32, 40, 64])
+@pytest.mark.parametrize("bias_kind", ["none", "padding", "full"])
+def test_plain_backward_matches_autograd_through_the_reference(bias_kind, d):
+    """The blockwise backward from the forward's row statistics against
+    autograd through the non-flash math, f32, ragged S (keys over two blocks
+    and a part), a padding bias with one clip's keys all padded.  1e-5 of the
+    largest gradient: the two sum in other orders (2e-7 measured)."""
+    rs = np.random.RandomState(d)
+    b, h, sq, sk = 2, 3, 37, 2 * fa.BLOCK_K + 21
+    q, k, v, w = (torch.from_numpy(rs.randn(b, h, s, d).astype(np.float32))
+                  for s in (sq, sk, sk, sq))
+    bias = _bias(rs, bias_kind, b, h, sq, sk)
+    out, stats = fa.flash_attention_plain(q, k, v, bias, with_stats=True)
+    got = fa.flash_attention_backward_plain(q, k, v, bias, out, stats, w)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad((fa.reference_attention(*leaves, bias) * w).sum(), leaves)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        _rel_close(g, r, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 9, 70, 16), (1, 2, 40, 150, 32)], ids=_ids_of)
+def test_a_bias_that_needs_a_gradient_takes_the_recompute(shape):
+    """A full bias that needs a gradient, [B, H, Sq, Sk] and broadcast over
+    the batch: the forward keeps no statistics, the backward recomputes the
+    non-flash math once and runs no plain backward, and every gradient,
+    the bias's at its own shape, has the bits of autograd through it."""
+    b, h, sq, sk, d = shape
+    rs = np.random.RandomState(sum(shape))
+    q, k, v, w = (torch.from_numpy(rs.randn(b, h, s, d).astype(np.float32))
+                  for s in (sq, sk, sk, sq))
+    for bias in (torch.from_numpy(rs.randn(b, h, sq, sk).astype(np.float32)),
+                 torch.from_numpy(rs.randn(1, h, sq, sk).astype(np.float32))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        out = fa.flash_attention(*leaves)
+        assert len(out.grad_fn.saved_tensors) == 4  # q, k, v and the bias: no stats
+        before = (fa.flash_attention.recomputes, fa.flash_attention.backward_launches,
+                  profiler.SPANS.totals().get("attention.backward", (0, 0.0))[0])
+        (out * w).sum().backward()
+        after = (fa.flash_attention.recomputes, fa.flash_attention.backward_launches,
+                 profiler.SPANS.totals().get("attention.backward", (0, 0.0))[0])
+        assert after == (before[0] + 1, before[1], before[2] + 1)
+        ref = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        want = torch.autograd.grad((fa.reference_attention(*ref) * w).sum(), ref)
+        for leaf, g in zip(leaves, want):
+            assert leaf.grad.shape == leaf.shape and torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "padding", "full"])
+def test_plain_forward_stats_give_the_row_log_sum_exp(bias_kind):
+    """``with_stats``: the same output, and m + log l of each row is
+    ``torch.logsumexp`` of its scaled, biased scores (to 1e-6 of the larger
+    of the log-sum-exp and 1)."""
+    rs = np.random.RandomState(7)
+    b, h, sq, sk, d = 2, 2, 21, 300, 32
+    q, k, v = (torch.from_numpy(rs.randn(b, h, s, d).astype(np.float32)) for s in (sq, sk, sk))
+    bias = _bias(rs, bias_kind, b, h, sq, sk)
+    out, stats = fa.flash_attention_plain(q, k, v, bias, with_stats=True)
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v, bias))
+    assert stats.shape == (b, h, sq, 2) and stats.dtype == torch.float32
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
+    want = torch.logsumexp(scores if bias is None else scores + bias, dim=-1)
+    got = stats[..., 0] + stats[..., 1].log()
+    assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) < 1e-6
+
+
+def test_cpu_backward_is_the_plain_one_and_needs_no_recompute():
+    """Through the wrapper on the CPU: every backward is the plain blockwise
+    one (the same bits as calling it on the forward's own statistics), none
+    recomputes, no kernel runs; a forward without gradients keeps nothing."""
+    rs = np.random.RandomState(8)
+    q, k, v, bias = (_t(x) for x in _inputs(8, 1, 2, 30, 140, 32, "padding"))
+    w = torch.from_numpy(rs.randn(*q.shape).astype(np.float32))
+    counts = (fa.flash_attention.recomputes, fa.flash_attention.backward_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fa.flash_attention(*leaves, bias) * w).sum().backward()
+    assert (fa.flash_attention.recomputes, fa.flash_attention.backward_launches) == counts
+    out, stats = fa.flash_attention_plain(q, k, v, bias, with_stats=True)
+    want = fa.flash_attention_backward_plain(q, k, v, bias, out, stats, w)
+    for leaf, g in zip(leaves, want):
+        assert torch.equal(leaf.grad, g)
+    with torch.no_grad():
+        out = fa.flash_attention(*leaves, bias)
+    assert out.grad_fn is None

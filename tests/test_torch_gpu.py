@@ -12,7 +12,10 @@ host by optimal cost to 1e-2 * max(1, |cost|), since scipy may break ties
 otherwise.  Kernel
 K4 (both variants, and which one ran) against its plain blockwise version:
 1e-5 on f32 inputs (the sums run in another order), one bf16 rounding (1e-2)
-on bf16 inputs.  The tiny f32
+on bf16 inputs; its backward kernels against the plain backward in f32 on
+the same bf16 inputs, to 2e-2 of each gradient's largest entry (P and dS
+rounded to bf16 once as operands), the same bits when replayed under a CUDA
+graph, and which calls recompute the plain attention.  The tiny f32
 evaluation step, long-clip predict and two train steps on the card against
 the CPU, TF32 off, to 1e-3, since the two devices sum convolutions and
 matmuls in a different order.  Dropout on the card from an explicit CUDA
@@ -272,6 +275,66 @@ def test_k4_gradient_is_the_non_flash_paths(cuda):
         grads.append([t.grad for t in leaves])
     for g, r in zip(*grads):
         assert torch.allclose(g, r, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", chip_smoke.K4_BACKWARD_SHAPES, ids=lambda s: _ids(s[:5]))
+def test_k4_backward_kernels_vs_plain(cuda, shape):
+    """The backward kernels against the plain backward in f32 on the same bf16
+    inputs, every constant bias kind (clip 0 of the padding bias has every key
+    padded), the forward split or not, and a slice of AST's batch: each
+    gradient to ``chip_smoke.K4_BACKWARD_TOL`` of its largest entry (P and dS
+    rounded to bf16 once as operands, the gradients at the end)."""
+    rng = np.random.RandomState(sum(shape))
+    b, h, sq, sk, d, split = shape
+    for bias_kind in ("padding", "full", "none"):
+        q, k, v, bias = chip_smoke.attention_inputs(rng, b, h, sq, sk, d, torch.bfloat16, cuda,
+                                                    bias_kind, projected=bias_kind == "padding")
+        before = chip_smoke.launch_counts()["K4 split"]
+        chip_smoke.k4_backward_against_plain(q, k, v, bias, bias_kind)
+        assert chip_smoke.launch_counts()["K4 split"] - before == 2 * int(split)
+
+
+@pytest.mark.gpu
+def test_k4_backward_under_a_cuda_graph(cuda):
+    """A captured backward replays to the same bits (no atomics, scratch from
+    the graph's pool)."""
+    rng = np.random.RandomState(5)
+    q, k, v, bias = chip_smoke.attention_inputs(rng, 2, 4, 300, 752, 64, torch.bfloat16, cuda,
+                                                "padding", projected=True)
+    out, stats, out_lo = fa._launch(q, k, v, bias, with_stats=True)
+    g = torch.randn(q.shape, device=cuda).to(q.dtype)
+    want = fa.flash_attention_backward(q, k, v, bias, out, stats, g, out_lo)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fa.flash_attention_backward(q, k, v, bias, out, stats, g, out_lo)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_k4_backward_counts_kernels_and_recomputes(cuda):
+    """bf16 through the tensor-core variant: one backward kernel call and no
+    recompute; the f32 variant and a bias that needs a gradient recompute."""
+    rng = np.random.RandomState(6)
+
+    def counts(dtype, bias_grad):
+        q, k, v, bias = chip_smoke.attention_inputs(rng, 2, 4, 41, 600, 32, dtype, cuda, "full")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        if bias_grad:
+            bias.requires_grad_()
+        before = (fa.flash_attention.backward_launches, fa.flash_attention.recomputes)
+        fa.flash_attention(*leaves, bias).float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert all(t.grad is not None for t in leaves) and (bias.grad is not None) == bias_grad
+        return (fa.flash_attention.backward_launches - before[0],
+                fa.flash_attention.recomputes - before[1])
+
+    assert counts(torch.bfloat16, False) == (1, 0)
+    assert counts(torch.float32, False) == (0, 1)
+    assert counts(torch.bfloat16, True) == (0, 1)
 
 
 @pytest.mark.gpu
