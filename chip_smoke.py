@@ -349,7 +349,6 @@ from sound_event_detection_transformer_tpu_torch.utils.profiler import (
     kernel_kinds,
     measure,
     record,
-    semi_step_parts,
     trace_table,
 )
 
@@ -2684,11 +2683,12 @@ def small_semi_trainer(dev: torch.device) -> float:
 
 def split_semi_step(model, teacher, wd, cfg, optimizer, batch, flags, thr, gen, n_lab: int,
                     card: str) -> None:
-    """The semi step's device time by part (``utils.profiler.semi_step_parts``
-    on the step's own views, without the mixups)."""
+    """The semi step's device time by part
+    (``profile_semi_torch.semi_step_parts`` on the step's own views, without
+    the mixups)."""
     views = train_lib.semi_views(batch.feats, cfg, gen)
-    parts = semi_step_parts(model, teacher, wd, cfg, optimizer, views, batch, flags, thr, gen,
-                            n_lab, busy_ms)
+    parts = profile_semi_torch.semi_step_parts(model, teacher, wd, cfg, optimizer, views, batch,
+                                               flags, thr, gen, n_lab, busy_ms)
     total = sum(parts.values())
     for name, ms in parts.items():
         print(f"semi step part {name}: {ms:.4f} ms of device time, {ms / total:.4f} of the "

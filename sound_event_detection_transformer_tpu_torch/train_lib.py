@@ -12,27 +12,32 @@ Counterpart of the JAX package's ``train_lib.py``:
 * ``evaluate``: the evaluation step over a dataset, the host decode, the
   event, segment and clip metrics per fusion strategy, and PSDS over decode
   thresholds, returned as an :class:`EvalResult`;
-* ``run_supervised``: the supervised trainer (epochs, evaluation, best
-  checkpoints per fusion strategy, early stopping, the fine-tune stage from
-  ``--epochs_ls``, resume, the final test; an ImageNet backbone from a
-  torchvision ``.pth``; with ``--from_wavs`` the frontend inside the train
-  step; with ``--pretrain`` an SP-SEDT checkpoint carried over by
-  ``utils.checkpoint.load_pretrain_into``), returning a :class:`TrainResult`;
+* the four trainers, on one skeleton of plain functions: the set-up
+  (``_set_up``), one epoch loop (``_epoch_loop``, under
+  ``train_one_epoch`` and ``train_audio_tag_epoch``), the epoch's end
+  (``_end_epoch``: one fetch, ``SystemExit(1)`` on a NaN), the timed
+  checkpoint write (``_save``), the periodic checkpoint and ``--resume``
+  (``_save_periodic``, ``_resume``), and for the supervised and semi
+  trainers the validation with its best checkpoints and early stop
+  (``_validate``) and the final test (``_final_test``).  Each adds its own
+  part:
+* ``run_supervised``: the fine-tune stage from ``--epochs_ls``, an ImageNet
+  backbone from a torchvision ``.pth``, with ``--from_wavs`` the frontend
+  inside the train step, with ``--pretrain`` an SP-SEDT checkpoint carried
+  over by ``utils.checkpoint.load_pretrain_into``; a :class:`TrainResult`;
 * ``run_spsedt``: SP-SEDT self-supervised pretraining (patch queries on
   unlabeled clips, ``--synthetic_smoke`` or DCASE's
   ``unlabel_in_domain.tsv`` and with ``--extra_data`` its 2018 task 5 TSV;
-  the backbone from an audio-tag checkpoint with ``--pretrain``; periodic
-  and final checkpoints, resume), returning a :class:`PretrainResult`;
-* ``run_semi``: the mean-teacher semi-supervised trainer (strong, weak and
-  unlabeled clips in every batch, the clean/noisy view pair, the EMA
-  teacher's pseudo-labels, class-wise thresholds adapted each epoch, the
-  teacher's or the student's evaluation, checkpoints, resume), returning a
-  :class:`TrainResult`;
-* ``run_audio_tag``: the audio-tag trainer (clip tags by a logit-space BCE
-  on ``AudioTagBackbone`` with clipped Adam, or with ``--at_model ast`` on
-  AST with its recipe's Adam under bf16 autocast; each epoch through
-  ``train_audio_tag_epoch``; the validation's clip macro F1 and a best
-  checkpoint, which ``run_spsedt --pretrain`` reads), returning an
+  the backbone from an audio-tag checkpoint with ``--pretrain``; a final
+  checkpoint); a :class:`PretrainResult`;
+* ``run_semi``: the mean teacher (strong, weak and unlabeled clips in every
+  batch, the clean/noisy view pair, the EMA teacher's pseudo-labels,
+  class-wise thresholds adapted each epoch, the teacher's or the student's
+  evaluation); a :class:`TrainResult`;
+* ``run_audio_tag``: clip tags by a logit-space BCE on ``AudioTagBackbone``
+  with clipped Adam, or with ``--at_model ast`` on AST with its recipe's
+  Adam under bf16 autocast; the validation's clip macro F1 and a best
+  checkpoint, which ``run_spsedt --pretrain`` reads; an
   :class:`AudioTagResult`.
 
 Each trainer runs in a ``torch.distributed`` group of N processes too
@@ -51,11 +56,12 @@ import argparse
 import contextlib
 import dataclasses
 import itertools
+import logging
 import math
 import os
 import os.path as osp
 import time
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -352,16 +358,22 @@ def args_to_config(args) -> SEDTConfig:
 # ---------------------------------------------------------------------------
 
 
+def _smoke_clips(cfg: SEDTConfig):
+    """The ``--synthetic_smoke`` encoder and ``mk(n, seed, **kw)``, a
+    :class:`SyntheticDataset` of ``n`` clips at the configuration's geometry."""
+    classes = list(cfg.data.classes)
+    enc = BoxEncoder(classes, seconds=cfg.features.max_len_seconds)
+    return enc, lambda n, seed, **kw: SyntheticDataset(
+        n, classes, cfg.model.max_frames, cfg.model.n_mels, enc.encode_strong_df,
+        max_events=min(3, cfg.model.max_events), seconds=cfg.features.max_len_seconds,
+        seed=seed, **kw)
+
+
 def build_synthetic_data(cfg: SEDTConfig, args) -> Dict:
     """The ``--synthetic_smoke`` datasets and encoder.  DCASE mode (with
     ``n_weak`` > 0) trains on a strong and a weak stream; validation and
     eval are one set of ``max(8, smoke_clips // 4)`` clips."""
-    classes = list(cfg.data.classes)
-    enc = BoxEncoder(classes, seconds=cfg.features.max_len_seconds)
-    mk = lambda n, seed, **kw: SyntheticDataset(
-        n, classes, cfg.model.max_frames, cfg.model.n_mels, enc.encode_strong_df,
-        max_events=min(3, cfg.model.max_events), seconds=cfg.features.max_len_seconds,
-        seed=seed, **kw)
+    enc, mk = _smoke_clips(cfg)
     if cfg.data.dataset_name == "dcase" and cfg.data.n_weak > 0 and not cfg.model.self_sup:
         train = ConcatDataset([mk(args.smoke_clips, 0),
                                mk(max(cfg.data.n_weak * 2, 4), 2, weak_only=True)])
@@ -403,23 +415,44 @@ def ref_rows(rows: List[Dict]) -> List[Tuple]:
     return [(r["filename"], r["onset"], r["offset"], r["event_label"]) for r in rows]
 
 
+def _sed_data(cfg: SEDTConfig) -> Tuple[str, SedData]:
+    """``<data_root>/<dataset>`` and its ``SedData``, which extracts missing
+    ``.npy`` mel amplitudes without the dB (the transform's, per clip)."""
+    root = osp.join(cfg.data.root, cfg.data.dataset_name)
+    return root, SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
+                         compute_log=False)
+
+
+def _fit_scaler(path: str, make_pre, timings: Dict) -> Scaler:
+    """The scaler saved at ``path``, else one computed over the dataset
+    ``make_pre()`` and saved there; its seconds into ``timings``."""
+    scaler = Scaler()
+    t0 = time.perf_counter()
+    if osp.isfile(path):
+        scaler.load(path)
+    else:
+        pre = make_pre()
+        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
+        os.makedirs(osp.dirname(path), exist_ok=True)
+        scaler.save(path)
+    timings["scaler_s"] = time.perf_counter() - t0
+    return scaler
+
+
 def build_real_data(cfg: SEDTConfig, args) -> Dict:
     """The datasets on disk under ``<data_root>/<dataset>``.
 
-    Each split's TSV goes through ``SedData`` (the missing ``.npy`` mel
-    amplitudes are extracted, without the dB, which the transform takes per
-    clip).  The scaler is computed over the training split (DCASE: weak then
-    synthetic) and saved at ``<exp_root>/<dataset>.json``, or loaded from
-    there when that file exists.  Training reads ``.npy`` features through
+    Each split's TSV goes through ``SedData`` (:func:`_sed_data`).  The
+    scaler is computed over the training split (DCASE: weak then synthetic)
+    and saved at ``<exp_root>/<dataset>.json``, or loaded from there when
+    that file exists.  Training reads ``.npy`` features through
     dB -> pad -> normalize, or with ``--from_wavs`` raw waveforms
     (``WavLoadDf``; the returned ``frontend`` arguments build the step's
     frontend from the same scaler); validation and eval always read
     ``.npy``.  ``timings`` holds the seconds of the feature pass and of the
     scaler, and the clips extracted.
     """
-    root = osp.join(cfg.data.root, cfg.data.dataset_name)
-    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
-                 compute_log=False)
+    _, ds = _sed_data(cfg)
     paths, audio_dirs = real_data_paths(cfg)
     t0 = time.perf_counter()
     dfs = get_dfs(ds, paths, nb_files=cfg.data.nb_files, audio_dirs=audio_dirs)
@@ -429,19 +462,11 @@ def build_real_data(cfg: SEDTConfig, args) -> Dict:
         dfs["synthetic"] = cap_strong_clips(dfs["synthetic"], cfg.data.max_strong_clips)
     enc = BoxEncoder(list(cfg.data.classes), seconds=cfg.features.max_len_seconds)
 
-    scaler = Scaler()
-    scaler_path = osp.join(cfg.data.exp_root, cfg.data.dataset_name + ".json")
-    t0 = time.perf_counter()
-    if osp.isfile(scaler_path):
-        scaler.load(scaler_path)
-    else:
-        base_tf = get_transforms(cfg.model.max_frames, None, compute_log=True)
-        pre = ConcatDataset([DataLoadDf(dfs[s], transform=base_tf)
-                             for s in (["train"] if "train" in dfs else ["weak", "synthetic"])])
-        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
-        os.makedirs(osp.dirname(scaler_path), exist_ok=True)
-        scaler.save(scaler_path)
-    timings["scaler_s"] = time.perf_counter() - t0
+    base_tf = get_transforms(cfg.model.max_frames, None, compute_log=True)
+    scaler = _fit_scaler(
+        osp.join(cfg.data.exp_root, cfg.data.dataset_name + ".json"),
+        lambda: ConcatDataset([DataLoadDf(dfs[s], transform=base_tf) for s in (
+            ["train"] if "train" in dfs else ["weak", "synthetic"])]), timings)
 
     tf = get_transforms(cfg.model.max_frames, scaler, compute_log=True)
     cache = cfg.data.in_memory
@@ -665,22 +690,15 @@ def init_model(cfg: SEDTConfig, device: torch.device):
                        generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
-def _imagenet_backbone_path(args) -> Optional[str]:
-    """The torchvision checkpoint to load into the backbone:
-    ``--imagenet_backbone``, else ``<data_root>/<backbone>.pth`` when that
-    file exists."""
+def _imagenet_backbone_init(model, args, log) -> Optional[str]:
+    """Load the torchvision checkpoint ``--imagenet_backbone``, else
+    ``<data_root>/<backbone>.pth`` when that file exists, into
+    ``model.backbone``, or warn that the backbone trains from scratch;
+    returns the path loaded."""
     path = getattr(args, "imagenet_backbone", None)
     if not path:
         auto = osp.join(args.data_root, f"{args.backbone}.pth")
         path = auto if osp.isfile(auto) else None
-    return path
-
-
-def _imagenet_backbone_init(model, args, log) -> Optional[str]:
-    """Load the ImageNet backbone (``_imagenet_backbone_path``) into
-    ``model.backbone``, or warn that the backbone trains from scratch;
-    returns the path loaded."""
-    path = _imagenet_backbone_path(args)
     if not path:
         log.warning(
             "backbone trains FROM SCRATCH — no ImageNet checkpoint found; pass "
@@ -706,67 +724,101 @@ def trainer_device(device: Optional[torch.device | str]) -> torch.device:
     return dev
 
 
-def _check_layout(cfg: SEDTConfig, stream_sizes: Sequence[int]) -> None:
-    """Raise, before any data is read, for a layout the trainers do not run:
-    a model axis (they keep every rank on the data axis, as the JAX
-    trainers build ``MeshConfig()``; the dryrun reaches the model axis), or
-    a global batch whose streams do not divide over the ranks, all of which
-    are then the data axis."""
+def _set_up(args, device, cfg: SEDTConfig, stream_sizes: Sequence[int], name: str,
+            title: str) -> Tuple[torch.device, logging.Logger, str]:
+    """A trainer's start: (its device, its logger ``name``, its model dir,
+    made), with ``--log``'s file.  First it raises for a layout the trainers
+    do not run: a model axis (the JAX trainers' ``MeshConfig()``; the dryrun
+    reaches it), or ``stream_sizes`` that do not divide over the ranks."""
+    dev = trainer_device(device)
     if model_world() > 1:
         raise ValueError("the trainers run every rank on the data axis: a layout with "
                          f"{model_world()} model ranks is the dryrun's")
     local_sizes(stream_sizes, get_world_size())
+    if args.log:
+        set_logger(cfg.train.info)
+    log = create_logger(name)
+    log.info(title)
+    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
+    os.makedirs(model_dir, exist_ok=True)
+    return dev, log, model_dir
 
 
-def _gen_states(gen: torch.Generator) -> Dict:
-    """The resume entries of the step generators: rank 0's state as
-    ``generator`` and, in a group, every rank's as ``generators`` (a
-    collective)."""
-    if data_world() == 1:
-        return {"generator": gen.get_state()}
-    states = gather_rows([gen.get_state()])
-    return {"generator": gen.get_state(), "generators": states}
+def _policies(cfg: SEDTConfig) -> Tuple[Dict[int, SaveBest], EarlyStopping]:
+    """Rank 0's policies: a best model per fusion strategy, the early stop."""
+    return ({m: SaveBest("sup") for m in cfg.train.fusion_strategy},
+            EarlyStopping(patience=cfg.train.early_stopping_patience,
+                          init_patience=cfg.train.early_stopping_init_wait,
+                          fusion_strategy=cfg.train.fusion_strategy))
 
 
-def _load_gen_state(gen: torch.Generator, ck: Dict) -> None:
-    """Restore this rank's step generator from a checkpoint written by a run
-    of the same world size."""
-    states = ck.get("generators", [ck["generator"]])
-    if len(states) != data_world():
-        raise ValueError(f"--resume: the checkpoint holds {len(states)} rank(s)' generators, "
-                         f"this run has {data_world()}")
-    gen.set_state(states[data_rank()])
+def _save_periodic(record: Dict, cfg: SEDTConfig, prefix: str, epoch: int, model,
+                   optimizer: SEDTOptimizer, gen: torch.Generator,
+                   streams: Dict[str, np.random.RandomState], policies=None, **extra) -> None:
+    """Every ``checkpoint_epochs`` epochs the checkpoint ``{prefix}_{epoch}``
+    (:func:`_save`), which :func:`_resume` reads: the model, the optimizer,
+    the epoch, each numpy stream under its key, rank 0's step generator
+    (``generator``) and in a group every rank's (``generators``, a
+    collective), the policies' states if given, then ``extra``."""
+    if not cfg.train.checkpoint_epochs or (epoch + 1) % cfg.train.checkpoint_epochs:
+        return
+    state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "epoch": epoch}
+    for key, rng in streams.items():
+        _, keys, pos, has_gauss, cached = rng.get_state()
+        state[key] = {"keys": torch.from_numpy(keys.astype(np.int64)), "pos": int(pos),
+                      "has_gauss": int(has_gauss), "cached_gaussian": float(cached)}
+    state["generator"] = gen.get_state()
+    if data_world() > 1:
+        state["generators"] = gather_rows([gen.get_state()])
+    if policies is not None:
+        state.update(save_best={m: s.state_dict() for m, s in policies[0].items()},
+                     early=policies[1].state_dict())
+    _save(record, f"{prefix}_{epoch}", {**state, **extra})
 
 
-def _rng_state(rng: np.random.RandomState) -> Dict:
-    _, keys, pos, has_gauss, cached = rng.get_state()
-    return {"keys": torch.from_numpy(keys.astype(np.int64)), "pos": int(pos),
-            "has_gauss": int(has_gauss), "cached_gaussian": float(cached)}
+def _resume(ck: Dict, name: str, log, model, optimizer: SEDTOptimizer, gen: torch.Generator,
+            streams: Dict[str, np.random.RandomState], policies=None) -> int:
+    """``--resume name`` from its checkpoint ``ck``: the model, and from a
+    periodic checkpoint (:func:`_save_periodic`, of a run of the same
+    world size) the rest; returns the epoch to go on at."""
+    model.load_state_dict(ck["model"])
+    if "optimizer" in ck:
+        optimizer.load_state_dict(ck["optimizer"])
+        for key, rng in streams.items():
+            st = ck[key]
+            rng.set_state(("MT19937", st["keys"].numpy().astype(np.uint32), st["pos"],
+                           st["has_gauss"], st["cached_gaussian"]))
+        states = ck.get("generators", [ck["generator"]])
+        if len(states) != data_world():
+            raise ValueError(f"--resume: the checkpoint holds {len(states)} rank(s)' "
+                             f"generators, this run has {data_world()}")
+        gen.set_state(states[data_rank()])
+        if policies is not None:
+            for m, sd in ck["save_best"].items():
+                policies[0][m].load_state_dict(sd)
+            policies[1].load_state_dict(ck["early"])
+    start_epoch = int(ck.get("epoch", -1)) + 1
+    log.info(f"resumed from {name}: epoch {start_epoch} next")
+    return start_epoch
 
 
-def _set_rng_state(rng: np.random.RandomState, st: Dict) -> None:
-    rng.set_state(("MT19937", st["keys"].numpy().astype(np.uint32), st["pos"],
-                   st["has_gauss"], st["cached_gaussian"]))
+def _save(record: Dict, path: str, content: Dict) -> None:
+    """The checkpoint ``content`` written at ``path``, its seconds added to
+    ``record["checkpoint_s"]``."""
+    t = time.perf_counter()
+    save_checkpoint(path, content)
+    record["checkpoint_s"] = record.get("checkpoint_s", 0.0) + time.perf_counter() - t
 
 
-def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generator, log):
-    """One pass of ``sampler`` (global index lists; a
-    :class:`MultiStreamBatchSampler`'s ``batch_sizes`` are its streams) over
-    ``dataset`` through ``train_step``, on this rank's share of each batch;
-    returns the metrics summed on the device (a
-    :class:`DeviceMetricAccumulator` of partials, not yet fetched) and the
-    step timer.  Batches are pinned for the card, and with ``bank`` their
-    features are gathered there.  The call runs in the span ``train.epoch``;
-    each batch's wait in ``train.wait``, its gather in ``train.gather`` and
-    its step in ``train.step``."""
+def _epoch_loop(batches: Iterator, total: int, step, gather, log):
+    """The epoch loop: ``step(batch)`` (metrics with ``loss``) on each of the
+    ``total`` batches, after ``gather(batch)`` unless None.  Spans:
+    ``train.epoch``, and each batch's ``train.wait``, ``train.gather``,
+    ``train.step``."""
     acc = DeviceMetricAccumulator(partials=True)
     timer = StepTimer()
-    hb = Heartbeat(log.info, len(sampler))
+    hb = Heartbeat(log.info, total)
     with annotate("train.epoch"):
-        batches = batch_iterator(dataset, iter(sampler), cfg.model.max_events,
-                                 cfg.features.max_len_seconds, bank=bank,
-                                 pin_memory=train_step.device.type == "cuda",
-                                 stream_sizes=getattr(sampler, "batch_sizes", None))
         for i in itertools.count():
             # the wait runs from the last step's end to the next batch's
             # arrival: the first starts the prefetch thread, and each one
@@ -779,11 +831,11 @@ def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generat
             except StopIteration:  # the ended wait, for no batch, is not counted
                 break
             timer.data_loaded(wait.seconds)
-            if bank is not None:
+            if gather is not None:
                 with annotate("train.gather"):
-                    batch = batch._replace(feats=bank.gather(batch.indexes), indexes=None)
+                    batch = gather(batch)
             with annotate("train.step"):
-                m = train_step(batch, generator)
+                m = step(batch)
             acc.update(m)  # summed on the device; no host sync
             hb.tick(i)
             # a finiteness probe every 500 steps bounds the compute lost to a
@@ -796,6 +848,52 @@ def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generat
     return acc, timer
 
 
+def train_one_epoch(train_step, dataset, sampler, cfg: SEDTConfig, bank, generator, log):
+    """One pass of ``sampler`` (global index lists; a
+    :class:`MultiStreamBatchSampler`'s ``batch_sizes`` are its streams) over
+    ``dataset`` through ``train_step``, on this rank's share of each batch;
+    returns the metrics summed on the device (a
+    :class:`DeviceMetricAccumulator` of partials, not yet fetched) and the
+    step timer (:func:`_epoch_loop`).  Batches are pinned for the card, and
+    with ``bank`` their features are gathered there."""
+    batches = batch_iterator(dataset, iter(sampler), cfg.model.max_events,
+                             cfg.features.max_len_seconds, bank=bank,
+                             pin_memory=train_step.device.type == "cuda",
+                             stream_sizes=getattr(sampler, "batch_sizes", None))
+    gather = (None if bank is None
+              else lambda b: b._replace(feats=bank.gather(b.indexes), indexes=None))
+    return _epoch_loop(batches, len(sampler), lambda b: train_step(b, generator), gather, log)
+
+
+def _end_epoch(log, record: Dict, sums: Dict, steps: int, timer: StepTimer, t0: float,
+               folds0: Dict, note: str = "") -> Dict:
+    """An epoch's end after the one fetch of its ``sums``: the line ``Epoch
+    N: loss ...`` (then ``note``), the loss mean, steps, seconds since
+    ``t0`` and wait for batches into ``record``, and ``SystemExit(1)`` on a
+    non-finite loss mean.  Returns the means over the steps."""
+    train_s = time.time() - t0
+    means = {k: v / max(steps, 1) for k, v in sums.items()}
+    loss = float(means.get("loss", float("nan")))
+    log.info(f"Epoch {record['epoch']}: loss {loss:.4f} ({steps} steps, {train_s:.1f}s) "
+             f"{timer.summary()}; {fold_summary(folds0)}{note}")
+    record.update(loss=loss, steps=steps, train_s=train_s, data_wait_s=timer.data_time.sum)
+    if not math.isfinite(loss):
+        log.info(f"Loss is {loss}, stopping training")
+        raise SystemExit(1)
+    return means
+
+
+def _log_stats(log, means: Dict, weights: Dict[str, float], **logged) -> None:
+    """The line "Train averaged stats": each mean but the loss and
+    ``logged``'s, unscaled and scaled by ``weights``, then those."""
+    mlog = MetricLogger(delimiter="  ")
+    get_reduced_loss({k: v for k, v in means.items() if k != "loss" and k not in logged},
+                     weights, mlog)
+    mlog.update(loss=means["loss"], **logged)
+    mlog.synchronize_between_processes()
+    log.info("Train averaged stats:\n" + str(mlog))
+
+
 def supervised_streams(cfg: SEDTConfig) -> List[int]:
     """The supervised trainer's batch layout: strong | weak rows on DCASE
     with ``n_weak`` > 0 (the dataset has both streams), else one stream."""
@@ -805,13 +903,53 @@ def supervised_streams(cfg: SEDTConfig) -> List[int]:
     return [bs]
 
 
-def _decide(best_saver: Dict[int, SaveBest], early: EarlyStopping,
-            metrics: Dict[int, float]) -> List[Tuple[bool, bool]]:
-    """(a new best, stop) per fusion strategy, decided by rank 0's policies
-    and broadcast."""
-    return _on_main(lambda: [(best_saver[m].apply(f1), early.apply(f1))
-                             for m, f1 in metrics.items()])
+def _validate(log, heading: str, eval_step, cfg: SEDTConfig, data: Dict, bank, weight_dict,
+              policies, record: Dict, best: str, content: Dict) -> Tuple[Dict[int, float], bool]:
+    """An epoch's validation into ``record``; per fusion strategy ``m`` rank
+    0's policies decide a new best, written as ``{best}_{m}_best``
+    (``content`` and the F1: a best checkpoint is read for its model only),
+    and the early stop.  Returns (F1 per strategy, whether to stop)."""
+    log.info(heading)
+    res = evaluate(eval_step, data["validation"], cfg, data["encoder"], data["ref_valid"],
+                   cfg.train.fusion_strategy, at=cfg.model.dec_at, weight_dict=weight_dict,
+                   bank=bank)
+    record.update(val_loss_means=res.loss_means, val_f1=dict(res.f1), eval_timings=res.timings)
+    decisions = _on_main(lambda: [(policies[0][m].apply(f1), policies[1].apply(f1))
+                                  for m, f1 in res.f1.items()])
+    for (m, f1), (new_best, stop) in zip(res.f1.items(), decisions):
+        if new_best:
+            _save(record, f"{best}_{m}_best", {**content, f"event_based_f1_{m}": f1})
+        if stop:
+            log.warning("EARLY STOPPING")
+    return res.f1, any(stop for _, stop in decisions)
 
+
+def _final_test(log, cfg: SEDTConfig, data: Dict, banks: Tuple, best: str, restore, step,
+                psds_thresholds=None, roc_curves=None) -> Tuple[Dict[int, float], List[Dict]]:
+    """The final test on validation and eval per fusion strategy ``m``, of
+    ``{best}_{m}_best`` where it exists (``restore(ck)`` returns its step),
+    else of the step tested last, ``step`` at first.  Returns (the last
+    strategy's eval F1, as the JAX package's; a record per strategy)."""
+    metrics, final = {}, []
+    for m in cfg.train.fusion_strategy:
+        record = {"fusion_strategy": m}
+        final.append(record)
+        path = f"{best}_{m}_best"
+        if osp.exists(path):
+            t = time.perf_counter()
+            step = restore(load_checkpoint(path))
+            record.update(checkpoint_s=time.perf_counter() - t, loaded=path)
+        log.info("Metric on validation")
+        res = evaluate(step, data["validation"], cfg, data["encoder"], data["ref_valid"], [m],
+                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True, bank=banks[0])
+        record.update(valid_f1=res.f1[m], valid_timings=res.timings)
+        log.info("Metric on eval")
+        res = evaluate(step, data["eval"], cfg, data["encoder"], data["ref_eval"], [m],
+                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True,
+                       psds_thresholds=psds_thresholds, bank=banks[1], roc_curves=roc_curves)
+        metrics = res.f1
+        record.update(eval_f1=metrics[m], eval_timings=res.timings, psds=res.psds)
+    return metrics, final
 
 def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainResult:
     """The supervised trainer, on ``--synthetic_smoke`` data or on the
@@ -822,36 +960,20 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
     Runs on ``device`` (the GPU when None).  The backbone starts from an
     ImageNet checkpoint when one is named or present.  Per epoch: the train
     steps (with ``--from_wavs`` on raw waveforms, featurised inside the step,
-    and without a feature bank: the host streams the audio), with the
-    metrics summed on the device and fetched once at the epoch's end;
-    every ``eval_interval`` epochs, ``evaluate`` on the validation set and a
-    best checkpoint per fusion strategy; from epoch ``epochs_ls`` on, the
-    fine-tune stage.  Then the final test of each strategy's best
-    checkpoint on validation and eval (PSDS with ``--psds``).
-
-    In a process group (see the module docstring) each rank runs on
-    :func:`trainer_device`, and the global batch's streams must divide over
-    the ranks.
+    and without a feature bank: the host streams the audio); every
+    ``eval_interval`` epochs the validation; from epoch ``epochs_ls`` on, the
+    fine-tune stage.  Then the final test (PSDS with ``--psds``).
     """
-    dev = trainer_device(device)
     cfg = args_to_config(args)
     batch_sizes = supervised_streams(cfg)
-    _check_layout(cfg, batch_sizes)
-    if args.log:
-        set_logger(cfg.train.info)
-    log = create_logger("train_sedt_torch")
-    log.info("Sound Event Detection Transformer (PyTorch)")
+    dev, log, model_dir = _set_up(args, device, cfg, batch_sizes, "train_sedt_torch",
+                                  "Sound Event Detection Transformer (PyTorch)")
     np.random.seed(cfg.train.seed)
     epochs: List[Dict] = []
-    final: List[Dict] = []
 
     data = build_synthetic_data(cfg, args) if args.synthetic_smoke else build_real_data(cfg, args)
-    enc = data["encoder"]
-    store_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name)
-    model_dir = osp.join(store_dir, "model")
-    os.makedirs(model_dir, exist_ok=True)
     if args.back_up:
-        back_up_code(store_dir, cfg.train.info)
+        back_up_code(osp.dirname(model_dir), cfg.train.info)
 
     concat = (data["train"] if isinstance(data["train"], ConcatDataset)
               else ConcatDataset([data["train"]]))
@@ -868,10 +990,7 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
         log.info(f"loaded self-supervised pretrain weights from {args.pretrain}: "
                  f"{len(loaded)} parameters")
     gen = torch.Generator(device=dev).manual_seed(rank_seed(cfg.train.seed))
-    best_saver = {m: SaveBest("sup") for m in cfg.train.fusion_strategy}
-    early = EarlyStopping(patience=cfg.train.early_stopping_patience,
-                          init_patience=cfg.train.early_stopping_init_wait,
-                          fusion_strategy=cfg.train.fusion_strategy)
+    policies = _policies(cfg)
     info = cfg.train.info
     fine_tune = cfg.train.fine_tune
 
@@ -884,18 +1003,10 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
     start_epoch = 0
     if args.resume:
         ck = load_checkpoint(osp.join(model_dir, args.resume))
-        model.load_state_dict(ck["model"])
-        start_epoch = int(ck.get("epoch", -1)) + 1
-        if start_epoch > args.epochs_ls:
+        if int(ck.get("epoch", -1)) >= args.epochs_ls:  # written in the fine-tune stage
             fine_tune_stage()
-        if "optimizer" in ck:
-            state.optimizer.load_state_dict(ck["optimizer"])
-            _set_rng_state(sampler.rng, ck["sampler"])
-            _load_gen_state(gen, ck)
-            for m, sd in ck["save_best"].items():
-                best_saver[m].load_state_dict(sd)
-            early.load_state_dict(ck["early"])
-        log.info(f"resumed from {args.resume}: epoch {start_epoch} next")
+        start_epoch = _resume(ck, args.resume, log, model, state.optimizer, gen,
+                              {"sampler": sampler.rng}, policies)
 
     frontend_fn = None
     if data.get("frontend") is not None:  # --from_wavs
@@ -910,21 +1021,19 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
                                normalize=cfg.train.normalize, fl=cfg.train.focal_loss,
                                frontend_fn=frontend_fn, device=dev)
 
+    def restore(ck):
+        model.load_state_dict(ck["model"])
+        return eval_step
+
     train_step = make_step()
     eval_step = make_eval_step(model, weight_dict, cfg, cfg.train.fusion_strategy, device=dev)
     # --from_wavs measures the streaming path: the host ships the audio of
     # every step, so its waveforms are not banked
     train_bank = None if frontend_fn is not None else maybe_bank(args, concat, cfg, dev, log=log)
     valid_bank = maybe_bank(args, data["validation"], cfg, dev, log=log)
-    eval_bank = (valid_bank if data["eval"] is data["validation"]
-                 else maybe_bank(args, data["eval"], cfg, dev, log=log))
+    banks = (valid_bank, valid_bank if data["eval"] is data["validation"]
+             else maybe_bank(args, data["eval"], cfg, dev, log=log))
 
-    def save(name: str, content: Dict, record: Dict) -> None:
-        t = time.perf_counter()
-        save_checkpoint(osp.join(model_dir, name), content)
-        record["checkpoint_s"] = record.get("checkpoint_s", 0.0) + time.perf_counter() - t
-
-    metrics: Dict[int, float] = {}
     for epoch in range(start_epoch, args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
@@ -940,82 +1049,30 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
             train_step = make_step()
 
         t0, folds0 = time.time(), FOLDS.copy()
-        mlog = MetricLogger(delimiter="  ")
         lr_now = (1e-5 if epoch >= args.epochs_ls
                   else cfg.train.lr if not cfg.train.adjust_lr
                   else cfg.train.lr * cfg.train.lr_drop_gamma ** (epoch // cfg.train.lr_drop))
         acc, timer = train_one_epoch(train_step, concat, sampler, cfg, train_bank, gen, log)
-        means, n_steps = acc.means()  # the one fetch of the epoch
-        train_s = time.time() - t0
-        loss_mean = float(means.pop("loss", float("nan")))
-        class_error = float(means.pop("class_error", 0.0))
-        get_reduced_loss(means, weight_dict, mlog)
-        mlog.update(loss=loss_mean, class_error=class_error, lr=lr_now)
-        mlog.synchronize_between_processes()
-        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}; {fold_summary(folds0)}")
-        log.info("Train averaged stats:\n" + str(mlog))
-        record.update(loss=loss_mean, loss_means=dict(means, loss=loss_mean,
-                                                      class_error=class_error),
-                      lr=lr_now, steps=n_steps, train_s=train_s, fine_tune=fine_tune,
-                      data_wait_s=timer.data_time.sum)
-        if not math.isfinite(loss_mean):
-            log.info(f"Loss is {loss_mean}, stopping training")
-            raise SystemExit(1)
+        means = _end_epoch(log, record, acc.totals(), acc.steps, timer, t0, folds0)
+        class_error = float(means.get("class_error", 0.0))
+        _log_stats(log, means, weight_dict, class_error=class_error, lr=lr_now)
+        record.update(loss_means=dict(means, loss=record["loss"], class_error=class_error),
+                      lr=lr_now, fine_tune=fine_tune)
 
-        if cfg.train.checkpoint_epochs and (epoch + 1) % cfg.train.checkpoint_epochs == 0:
-            save(f"{info}_{epoch}", {
-                "model": model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "epoch": epoch, "sampler": _rng_state(sampler.rng), **_gen_states(gen),
-                "save_best": {m: s.state_dict() for m, s in best_saver.items()},
-                "early": early.state_dict()}, record)
+        _save_periodic(record, cfg, osp.join(model_dir, info), epoch, model, state.optimizer, gen,
+                       {"sampler": sampler.rng}, policies)
         if (epoch + 1) % cfg.train.eval_interval != 0:
             continue
-        log.info("Metric on validation")
-        res = evaluate(eval_step, data["validation"], cfg, enc, data["ref_valid"],
-                       cfg.train.fusion_strategy, at=cfg.model.dec_at,
-                       weight_dict=weight_dict, bank=valid_bank)
-        metrics = res.f1
-        record.update(val_loss_means=res.loss_means, val_f1=dict(metrics),
-                      eval_timings=res.timings)
-        stop = False
-        for (m, f1), (best, stop_m) in zip(metrics.items(),
-                                           _decide(best_saver, early, metrics)):
-            if best:
-                # no optimizer state: a best checkpoint is read for its model
-                # only (the fine-tune reload, the final test)
-                save(f"{info}_{m}_best", {"model": model.state_dict(), "epoch": epoch,
-                                          f"event_based_f1_{m}": f1}, record)
-            if stop_m:
-                log.warning("EARLY STOPPING")
-                stop = True
+        _, stop = _validate(log, "Metric on validation", eval_step, cfg, data, valid_bank,
+                            weight_dict, policies, record, osp.join(model_dir, info),
+                            {"model": model.state_dict(), "epoch": epoch})
         if stop:
             break
 
-    # the final test of each strategy's best model
-    for m in cfg.train.fusion_strategy:
-        record = {"fusion_strategy": m}
-        final.append(record)
-        best_path = osp.join(model_dir, f"{info}_{m}_best")
-        if osp.exists(best_path):
-            t = time.perf_counter()
-            model.load_state_dict(load_checkpoint(best_path)["model"])
-            record.update(checkpoint_s=time.perf_counter() - t, loaded=best_path)
-        log.info("Metric on validation")
-        res = evaluate(eval_step, data["validation"], cfg, enc, data["ref_valid"], [m],
-                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True, bank=valid_bank)
-        record.update(valid_f1=res.f1[m], valid_timings=res.timings)
-        log.info("Metric on eval")
-        res = evaluate(eval_step, data["eval"], cfg, enc, data["ref_eval"], [m],
-                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True,
-                       psds_thresholds=PSDS_THRESHOLDS if args.psds else None, bank=eval_bank,
-                       roc_curves=args.roc_curves)
-        metrics = res.f1
-        record.update(eval_f1=metrics[m], eval_timings=res.timings, psds=res.psds)
-    return TrainResult(metrics, epochs, final,
-                       bank=train_bank is not None and valid_bank is not None,
+    f1, final = _final_test(log, cfg, data, banks, osp.join(model_dir, info), restore, eval_step,
+                            PSDS_THRESHOLDS if args.psds else None, args.roc_curves)
+    return TrainResult(f1, epochs, final, bank=train_bank is not None and valid_bank is not None,
                        model_dir=model_dir, data_timings=data.get("timings", {}))
-
 
 # ---------------------------------------------------------------------------
 # SP-SEDT self-supervised pretraining
@@ -1059,9 +1116,7 @@ def build_pretrain_data(cfg: SEDTConfig, args, rng: np.random.RandomState) -> Di
                                  cfg.model.n_mels, enc.encode_strong_df, max_events=2, seed=0,
                                  unlabel=True, **patch_kw)
         return {"train": train, "timings": {}}
-    root = osp.join(cfg.data.root, cfg.data.dataset_name)
-    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
-                 compute_log=False)
+    root, ds = _sed_data(cfg)
     tsvs = ["unlabel_in_domain.tsv"] + (["dcase2018_task5.tsv"] if getattr(args, "extra_data", False)
                                       else [])
     t0 = time.perf_counter()
@@ -1069,18 +1124,9 @@ def build_pretrain_data(cfg: SEDTConfig, args, rng: np.random.RandomState) -> Di
         osp.join(root, "metadata", "train", tsv), nb_files=cfg.data.nb_files)]
     timings = {"features_s": time.perf_counter() - t0, "extracted": ds.n_extracted,
                "clips": len(unique(r["filename"] for r in rows))}
-    scaler = Scaler()
-    scaler_path = osp.join(cfg.data.exp_root, cfg.data.dataset_name + ".json")
-    t0 = time.perf_counter()
-    if osp.isfile(scaler_path):
-        scaler.load(scaler_path)
-    else:
-        pre = DataLoadDf(rows, transform=get_transforms(cfg.model.max_frames, None,
-                                                        compute_log=True))
-        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
-        os.makedirs(osp.dirname(scaler_path), exist_ok=True)
-        scaler.save(scaler_path)
-    timings["scaler_s"] = time.perf_counter() - t0
+    scaler = _fit_scaler(osp.join(cfg.data.exp_root, cfg.data.dataset_name + ".json"),
+                         lambda: DataLoadDf(rows, transform=get_transforms(
+                             cfg.model.max_frames, None, compute_log=True)), timings)
     train = DataLoadDf(rows, enc.encode_strong_df,
                        get_transforms(cfg.model.max_frames, scaler, compute_log=True),
                        in_memory=cfg.data.in_memory, device_patches=True, **patch_kw)
@@ -1109,18 +1155,12 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     process group every rank draws the permutation and every row's patch
     boxes, and trains on its share of each batch.
     """
-    dev = trainer_device(device)
     cfg = spsedt_config(args)
-    _check_layout(cfg, [cfg.data.batch_size])
-    if args.log:
-        set_logger(cfg.train.info)
-    log = create_logger("train_spsedt_torch")
-    log.info("SP-SEDT self-supervised pretraining (PyTorch)")
+    dev, log, model_dir = _set_up(args, device, cfg, [cfg.data.batch_size], "train_spsedt_torch",
+                                  "SP-SEDT self-supervised pretraining (PyTorch)")
     rng = np.random.RandomState(cfg.train.seed)
     epochs: List[Dict] = []
 
-    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
-    os.makedirs(model_dir, exist_ok=True)
     data = build_pretrain_data(cfg, args, rng)
     train_data = data["train"]
     bs = cfg.data.batch_size
@@ -1138,23 +1178,12 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     gen = torch.Generator(device=dev).manual_seed(rank_seed(cfg.train.seed))
     start_epoch = 0
     if args.resume:
-        ck = load_checkpoint(osp.join(model_dir, args.resume))
-        model.load_state_dict(ck["model"])
-        start_epoch = int(ck.get("epoch", -1)) + 1
-        if "optimizer" in ck:
-            state.optimizer.load_state_dict(ck["optimizer"])
-            _set_rng_state(rng, ck["rng"])
-            _load_gen_state(gen, ck)
-        log.info(f"resumed from {args.resume}: epoch {start_epoch} next")
+        start_epoch = _resume(load_checkpoint(osp.join(model_dir, args.resume)), args.resume,
+                              log, model, state.optimizer, gen, {"rng": rng})
 
     train_step = make_train_step(wrap_model(model, dev), weight_dict, cfg, state.optimizer,
                                  augment_on=False, device=dev)
     bank = maybe_bank(args, train_data, cfg, dev, log=log)
-
-    def save(name: str, content: Dict, record: Dict) -> None:
-        t = time.perf_counter()
-        save_checkpoint(osp.join(model_dir, name), content)
-        record["checkpoint_s"] = record.get("checkpoint_s", 0.0) + time.perf_counter() - t
 
     for epoch in range(start_epoch, args.epochs):
         record: Dict = {"epoch": epoch}
@@ -1163,27 +1192,17 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc, timer = train_one_epoch(train_step, train_data, index_batches, cfg, bank, gen, log)
-        means, n_steps = acc.means()  # the one fetch of the epoch
-        train_s = time.time() - t0
-        loss_mean = float(means.get("loss", float("nan")))
-        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}; {fold_summary(folds0)}")
-        record.update(loss=loss_mean, loss_means=means, steps=n_steps, train_s=train_s,
-                      data_wait_s=timer.data_time.sum)
-        if not math.isfinite(loss_mean):
-            log.info("Loss is not finite, stopping")
-            raise SystemExit(1)
-        if cfg.train.checkpoint_epochs and (epoch + 1) % cfg.train.checkpoint_epochs == 0:
-            save(f"{cfg.train.info}_{epoch}", {
-                "model": model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "epoch": epoch, "rng": _rng_state(rng), **_gen_states(gen)}, record)
-    final = {}
-    save(cfg.train.info, {"model": model.state_dict(), "epoch": args.epochs}, final)
+        record["loss_means"] = _end_epoch(log, record, acc.totals(), acc.steps, timer, t0,
+                                          folds0)
+        _save_periodic(record, cfg, osp.join(model_dir, cfg.train.info), epoch, model,
+                       state.optimizer, gen, {"rng": rng})
+    final: Dict = {}
+    _save(final, osp.join(model_dir, cfg.train.info), {"model": model.state_dict(),
+                                                       "epoch": args.epochs})
     log.info(f"saved final pretrain checkpoint: {cfg.train.info} ({final['checkpoint_s']:.3f}s)")
     return PretrainResult(epochs, bank=bank is not None, model_dir=model_dir,
                           checkpoint=osp.join(model_dir, cfg.train.info),
                           data_timings=dict(data["timings"], final_checkpoint_s=final["checkpoint_s"]))
-
 
 # ---------------------------------------------------------------------------
 # semi-supervised mean-teacher trainer
@@ -1201,12 +1220,7 @@ def build_semi_data(cfg: SEDTConfig, args, batch_sizes: Sequence[int]) -> Dict:
     ``metadata/train/unlabel_in_domain.tsv`` through ``SedData`` and
     ``DataLoadDf`` with the training scaler."""
     if args.synthetic_smoke:
-        classes = list(cfg.data.classes)
-        enc = BoxEncoder(classes, seconds=cfg.features.max_len_seconds)
-        mk = lambda n, seed, **kw: SyntheticDataset(
-            n, classes, cfg.model.max_frames, cfg.model.n_mels, enc.encode_strong_df,
-            max_events=min(3, cfg.model.max_events), seconds=cfg.features.max_len_seconds,
-            seed=seed, **kw)
+        enc, mk = _smoke_clips(cfg)
         n_strong = max(args.smoke_clips // 4, 4 * batch_sizes[0])
         n_weak = max(args.smoke_clips // 4, 4 * batch_sizes[1])
         n_unlab = max(args.smoke_clips // 2, 4 * batch_sizes[2])
@@ -1216,9 +1230,7 @@ def build_semi_data(cfg: SEDTConfig, args, batch_sizes: Sequence[int]) -> Dict:
                 "validation": valid, "eval": valid, "encoder": enc,
                 "ref_valid": valid.ref_rows(), "ref_eval": valid.ref_rows(), "timings": {}}
     data = build_real_data(cfg, args)
-    root = osp.join(cfg.data.root, cfg.data.dataset_name)
-    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
-                 compute_log=False)
+    root, ds = _sed_data(cfg)
     t0 = time.perf_counter()
     rows = ds.initialize_and_get_df(osp.join(root, "metadata", "train", "unlabel_in_domain.tsv"),
                                     nb_files=cfg.data.nb_files)
@@ -1265,22 +1277,18 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     as its copy.  Per step, from the step's generator: the clean and noisy
     views, the masks on the noisy one, then ``make_semi_train_step``
     (cosine lr, the EMA every ``accumlating_ema_steps`` steps).  Per epoch:
-    the metrics and pseudo counts summed on the device and fetched once, the
-    thresholds adapted from the counts (uploaded once for the next epoch),
-    the teacher's (``--teacher_eval``, the default) or the student's
-    validation with a best checkpoint per fusion strategy (student, teacher,
-    epoch) and early stopping, and every ``checkpoint_epochs`` a periodic
-    checkpoint with AdamW, the thresholds, the policies, the sampler's
-    stream and the step's generator, from which ``--resume`` goes on at the
-    next epoch as the uninterrupted run does.  Then the final test of each
-    strategy's best teacher (or student) on validation and eval.
+    the pseudo counts summed with the metrics, the thresholds adapted from
+    them (uploaded once for the next epoch), the teacher's
+    (``--teacher_eval``, the default) or the student's validation (a best
+    checkpoint holds both), a periodic checkpoint with the teacher and the
+    thresholds.  Then the final test of each strategy's best teacher (or
+    student).
 
     In a process group each rank's batch is its share of every stream (its
     local ``n_labeled`` is (strong + weak) / N), the pseudo counts are summed
     over the ranks before the thresholds adapt, and the teacher stays the
     same on every rank, as the student's parameters do.
     """
-    dev = trainer_device(device)
     if getattr(args, "from_wavs", False):
         raise ValueError("--from_wavs streams waveforms to the supervised trainer only")
     if not (args.teacher_model or args.synthetic_smoke or args.eval):
@@ -1288,21 +1296,15 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     cfg = args_to_config(args)
     bs = args.semi_batch_size
     batch_sizes = [bs // 4, bs // 4, 2 * bs // 4]
-    _check_layout(cfg, batch_sizes)
+    dev, log, model_dir = _set_up(args, device, cfg, batch_sizes, "train_ss_sedt_torch",
+                                  "Semi-supervised SEDT, mean teacher (PyTorch)")
     local = local_sizes(batch_sizes, data_world())
-    if args.log:
-        set_logger(cfg.train.info)
-    log = create_logger("train_ss_sedt_torch")
-    log.info("Semi-supervised SEDT, mean teacher (PyTorch)")
     np.random.seed(cfg.train.seed)
     epochs: List[Dict] = []
-    final: List[Dict] = []
     nc = cfg.model.num_classes
 
-    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
-    os.makedirs(model_dir, exist_ok=True)
     data = build_semi_data(cfg, args, batch_sizes)
-    enc, concat = data["encoder"], data["train"]
+    concat = data["train"]
     sampler = MultiStreamBatchSampler(concat, batch_sizes, seed=cfg.train.seed)
     steps_per_epoch = max(len(sampler), 1)
 
@@ -1317,25 +1319,15 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     prior = prior / prior.sum()
     origin_threshold = np.full((nc,), 0.5)
     thresholds = origin_threshold.copy()
-    best_saver = {m: SaveBest("sup") for m in cfg.train.fusion_strategy}
-    early = EarlyStopping(patience=cfg.train.early_stopping_patience,
-                          init_patience=cfg.train.early_stopping_init_wait,
-                          fusion_strategy=cfg.train.fusion_strategy)
+    policies = _policies(cfg)
     start_epoch = 0
     if args.resume:
         ck = load_checkpoint(osp.join(model_dir, args.resume))
-        model.load_state_dict(ck["model"])
+        start_epoch = _resume(ck, args.resume, log, model, state.optimizer, gen,
+                              {"sampler": sampler.rng}, policies)
         teacher.load_state_dict(ck["teacher"])
-        start_epoch = int(ck.get("epoch", -1)) + 1
         if "optimizer" in ck:
-            state.optimizer.load_state_dict(ck["optimizer"])
-            _set_rng_state(sampler.rng, ck["sampler"])
-            _load_gen_state(gen, ck)
             thresholds = ck["classwise_threshold"].numpy()
-            for m, sd in ck["save_best"].items():
-                best_saver[m].load_state_dict(sd)
-            early.load_state_dict(ck["early"])
-        log.info(f"resumed from {args.resume}: epoch {start_epoch} next")
 
     semi_step = make_semi_train_step(weight_dict, cfg, fine_tune=cfg.train.fine_tune,
                                      normalize=cfg.train.normalize, fl=cfg.train.focal_loss,
@@ -1354,8 +1346,8 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
     state = state._replace(model=wrap_model(model, dev))
     train_bank = maybe_bank(args, concat, cfg, dev, log=log)
     valid_bank = maybe_bank(args, data["validation"], cfg, dev, log=log)
-    eval_bank = (valid_bank if data["eval"] is data["validation"]
-                 else maybe_bank(args, data["eval"], cfg, dev, log=log))
+    banks = (valid_bank, valid_bank if data["eval"] is data["validation"]
+             else maybe_bank(args, data["eval"], cfg, dev, log=log))
 
     def epoch_step(threshold_dev: torch.Tensor):
         """The step of one epoch as ``train_one_epoch`` calls it: the view
@@ -1376,100 +1368,53 @@ def run_semi(args, device: Optional[torch.device | str] = None) -> TrainResult:
         step.device = dev
         return step
 
-    def save(name: str, content: Dict, record: Dict) -> None:
-        t = time.perf_counter()
-        save_checkpoint(osp.join(model_dir, name), content)
-        record["checkpoint_s"] = record.get("checkpoint_s", 0.0) + time.perf_counter() - t
+    def restore(ck):
+        (teacher if args.teacher_eval else model).load_state_dict(
+            ck["teacher" if args.teacher_eval else "model"])
+        log.info(f"using the {evaluated} for the test")
+        return eval_steps[evaluated]
 
     semi_weights = ({f"sup_{k}": v for k, v in weight_dict.items()}
                     | {f"unsup_{k}": v for k, v in weight_dict.items()})
-    metrics: Dict[int, float] = {}
     for epoch in range(start_epoch, args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
         t0, folds0 = time.time(), FOLDS.copy()
-        mlog = MetricLogger(delimiter="  ")
         # the thresholds go to the device once an epoch, compared in f32
         threshold_dev = torch.as_tensor(thresholds, dtype=torch.float32).to(dev)
         acc, timer = train_one_epoch(epoch_step(threshold_dev), concat, sampler, cfg, train_bank,
                                      gen, log)
-        totals = acc.totals()  # the one fetch (and reduction) of the epoch
-        n_steps = acc.steps
-        train_s = time.time() - t0
-        counts = totals.pop("pseudo_counts", np.zeros(nc))
-        means = {k: float(v) / max(n_steps, 1) for k, v in totals.items()}
-        loss_mean = means.pop("loss", float("nan"))
-        get_reduced_loss(means, semi_weights, mlog)
-        mlog.update(loss=loss_mean)
+        sums = acc.totals()  # the one fetch (and reduction) of the epoch
+        counts = sums.pop("pseudo_counts", np.zeros(nc))
+        means = _end_epoch(log, record, sums, acc.steps, timer, t0, folds0,
+                           f"; pseudo counts {counts.astype(int).tolist()}")
         thresholds = adjust_threshold(counts, origin_threshold, prior)
-        mlog.synchronize_between_processes()
-        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}; {fold_summary(folds0)}; pseudo counts {counts.astype(int).tolist()}")
-        log.info("Train averaged stats:\n" + str(mlog))
-        record.update(loss=loss_mean, loss_means=dict(means, loss=loss_mean), steps=n_steps,
-                      train_s=train_s, data_wait_s=timer.data_time.sum,
-                      pseudo_counts=counts.tolist(), thresholds=thresholds.tolist())
-        if not math.isfinite(loss_mean):
-            log.info(f"Loss is {loss_mean}, stopping training")
-            raise SystemExit(1)
+        _log_stats(log, means, semi_weights)
+        record.update(loss_means=means, pseudo_counts=counts.tolist(),
+                      thresholds=thresholds.tolist())
 
-        log.info(f"{evaluated} model validation")
-        res = evaluate(eval_steps[evaluated], data["validation"], cfg, enc, data["ref_valid"],
-                       cfg.train.fusion_strategy, at=cfg.model.dec_at, weight_dict=weight_dict,
-                       bank=valid_bank)
-        metrics = res.f1
-        record.update(val_loss_means=res.loss_means, val_f1=dict(metrics),
-                      eval_timings=res.timings)
-        stop = False
-        for (m, f1), (best, stop_m) in zip(metrics.items(),
-                                           _decide(best_saver, early, metrics)):
-            if best:
-                save(f"{cfg.train.info}_{m}_best", {
-                    "model": model.state_dict(), "teacher": teacher.state_dict(),
-                    "epoch": epoch, f"event_based_f1_{m}": f1}, record)
-            if stop_m:
-                log.warning("EARLY STOPPING")
-                stop = True
-        if cfg.train.checkpoint_epochs and (epoch + 1) % cfg.train.checkpoint_epochs == 0:
-            save(f"{cfg.train.info}_{epoch}", {
-                "model": model.state_dict(), "teacher": teacher.state_dict(),
-                "optimizer": state.optimizer.state_dict(), "epoch": epoch,
-                "classwise_threshold": torch.from_numpy(np.asarray(thresholds, np.float64)),
-                "sampler": _rng_state(sampler.rng), **_gen_states(gen),
-                "save_best": {m: s.state_dict() for m, s in best_saver.items()},
-                "early": early.state_dict()}, record)
+        _, stop = _validate(log, f"{evaluated} model validation", eval_steps[evaluated], cfg, data,
+                            valid_bank, weight_dict, policies, record,
+                            osp.join(model_dir, cfg.train.info),
+                            {"model": model.state_dict(), "teacher": teacher.state_dict(),
+                             "epoch": epoch})
+        _save_periodic(record, cfg, osp.join(model_dir, cfg.train.info), epoch, model,
+                       state.optimizer, gen, {"sampler": sampler.rng}, policies,
+                       teacher=teacher.state_dict(),
+                       classwise_threshold=torch.from_numpy(np.asarray(thresholds, np.float64)))
         if stop:
             break
 
     # the final test of each strategy's best teacher (or student); without a
     # best checkpoint the model last loaded is tested, the student at first
-    tested, tested_step = "student", eval_steps["student"]
-    for m in cfg.train.fusion_strategy:
-        record = {"fusion_strategy": m}
-        final.append(record)
-        best_path = osp.join(model_dir, f"{cfg.train.info}_{m}_best")
-        if osp.exists(best_path):
-            t = time.perf_counter()
-            ck = load_checkpoint(best_path)
-            (teacher if args.teacher_eval else model).load_state_dict(
-                ck["teacher" if args.teacher_eval else "model"])
-            tested, tested_step = evaluated, eval_steps[evaluated]
-            record.update(checkpoint_s=time.perf_counter() - t, loaded=best_path)
-            log.info(f"using the {tested} for the test")
+    f1, final = _final_test(log, cfg, data, banks, osp.join(model_dir, cfg.train.info), restore,
+                            eval_steps["student"])
+    tested = "student"
+    for record in final:
+        tested = evaluated if "loaded" in record else tested
         record["model"] = tested
-        log.info("Metric on validation")
-        res = evaluate(tested_step, data["validation"], cfg, enc, data["ref_valid"], [m],
-                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True, bank=valid_bank)
-        record.update(valid_f1=res.f1[m], valid_timings=res.timings)
-        log.info("Metric on eval")
-        res = evaluate(tested_step, data["eval"], cfg, enc, data["ref_eval"], [m],
-                       at=cfg.model.dec_at, cal_seg=True, cal_clip=True, bank=eval_bank)
-        metrics = res.f1
-        record.update(eval_f1=metrics[m], eval_timings=res.timings)
-    return TrainResult(metrics, epochs, final,
-                       bank=train_bank is not None and valid_bank is not None,
+    return TrainResult(f1, epochs, final, bank=train_bank is not None and valid_bank is not None,
                        model_dir=model_dir, data_timings=data.get("timings", {}))
-
 
 # ---------------------------------------------------------------------------
 # audio-tag backbone trainer
@@ -1509,9 +1454,7 @@ def build_audio_tag_data(cfg: SEDTConfig, args) -> Dict:
         valid = mk(16, 1)
         return {"train": mk(args.smoke_clips, 0), "validation": valid,
                 "ref_valid": valid.ref_rows(), "encoder": mhe, "timings": {}}
-    root = osp.join(cfg.data.root, cfg.data.dataset_name)
-    ds = SedData(cfg.data.dataset_name, base_feature_dir=osp.join(root, "features"),
-                 compute_log=False)
+    _, ds = _sed_data(cfg)
     paths, audio_dirs = real_data_paths(cfg)
     paths.pop("eval")
     train_keys = ["train"] if "train" in paths else ["weak", "synthetic"]
@@ -1519,18 +1462,9 @@ def build_audio_tag_data(cfg: SEDTConfig, args) -> Dict:
     dfs = get_dfs(ds, paths, nb_files=cfg.data.nb_files, audio_dirs=audio_dirs)
     timings = {"features_s": time.perf_counter() - t0, "extracted": ds.n_extracted,
                "clips": sum(len(unique(r["filename"] for r in rows)) for rows in dfs.values())}
-    scaler = Scaler()
-    scaler_path = osp.join(cfg.data.exp_root, cfg.data.dataset_name + "_at.json")
-    t0 = time.perf_counter()
-    if osp.isfile(scaler_path):
-        scaler.load(scaler_path)
-    else:
-        pre = ConcatDataset([DataLoadDf(dfs[k], transform=get_frame_transforms(
-            m.max_frames, None, compute_log=True)) for k in train_keys])
-        scaler.calculate_scaler(pre.features_only(i)[0] for i in range(len(pre)))
-        os.makedirs(osp.dirname(scaler_path), exist_ok=True)
-        scaler.save(scaler_path)
-    timings["scaler_s"] = time.perf_counter() - t0
+    scaler = _fit_scaler(osp.join(cfg.data.exp_root, cfg.data.dataset_name + "_at.json"),
+                         lambda: ConcatDataset([DataLoadDf(dfs[k], transform=get_frame_transforms(
+                             m.max_frames, None, compute_log=True)) for k in train_keys]), timings)
     tf = get_frame_transforms(m.max_frames, scaler, compute_log=True)
     cache = cfg.data.in_memory
     train = ConcatDataset([DataLoadDf(dfs[k], mhe.encode_weak, tf, in_memory=cache,
@@ -1622,29 +1556,15 @@ def train_audio_tag_epoch(step, dataset, index_batches: Sequence[Sequence[int]],
                           device: torch.device):
     """One pass of the audio-tag trainer over ``index_batches`` (global index
     lists) of ``dataset`` through ``step`` (:func:`make_audio_tag_step`), on
-    this rank's share of each batch: the batches built on the prefetch
-    thread (``weak_batches``, pinned for the card) and copied to ``device``
-    without a wait; returns the loss summed on the device (a
-    :class:`DeviceMetricAccumulator` of partials, not yet fetched) and the
-    step timer.  The call runs in the span ``train.epoch``; each batch's wait
-    in ``train.wait`` and its step in ``train.step``."""
-    acc = DeviceMetricAccumulator(partials=True)
-    timer = StepTimer()
+    this rank's share of each batch, built on the prefetch thread
+    (``weak_batches``, pinned) and copied to ``device`` in ``train.step``;
+    returns the loss summed on the device and the step timer
+    (:func:`_epoch_loop`, its heartbeat to the logger ``train_at_torch``)."""
     batches = weak_batches(dataset, index_batches, pin_memory=device.type == "cuda")
-    with annotate("train.epoch"):
-        while True:
-            try:
-                with annotate("train.wait") as wait:
-                    x, y = next(batches)
-            except StopIteration:  # the ended wait, for no batch, is not counted
-                break
-            timer.data_loaded(wait.seconds)
-            with annotate("train.step"):
-                loss = step(x.to(device, non_blocking=True), y.to(device, non_blocking=True))
-            acc.update({"loss": loss})
-            timer.step_done()
-    return acc, timer
-
+    return _epoch_loop(batches, len(index_batches),
+                       lambda xy: {"loss": step(xy[0].to(device, non_blocking=True),
+                                                xy[1].to(device, non_blocking=True))},
+                       None, logging.getLogger("train_at_torch"))
 
 def k4_summary(launches0: int, backward0: int, recomputes0: int, steps: int) -> str:
     """Kernel K4's forward launches, backward kernel calls and backward
@@ -1696,9 +1616,7 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
     given), halved every epoch from epoch 2.  Per epoch
     (:func:`train_audio_tag_epoch`): one permutation from a
     ``RandomState(seed)`` (the JAX package's draw from numpy's seeded global
-    stream), its full batches (the ragged tail dropped) built on the
-    prefetch thread, the loss summed on the device and fetched once; a
-    non-finite mean ends the run with ``SystemExit(1)``; then the clip tags
+    stream), its full batches (the ragged tail dropped); then the clip tags
     of the validation set and their macro F1, and on a new best F1 the
     checkpoint ``{"model", "epoch"}`` at
     ``<exp_root>/<dataset>/model/at_<pooling>_<dataset>`` (``at_ast_...``
@@ -1706,19 +1624,13 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
     of every batch under DDP; rank 0 scores the gathered tags and decides
     the checkpoint.
     """
-    dev = trainer_device(device)
     cfg, ast = audio_tag_ast(args, args_to_config(args))
-    _check_layout(cfg, [cfg.data.batch_size])
-    if args.log:
-        set_logger(cfg.train.info)
-    log = create_logger("train_at_torch")
-    log.info("Audio-tag backbone trainer (PyTorch)")
+    dev, log, model_dir = _set_up(args, device, cfg, [cfg.data.batch_size], "train_at_torch",
+                                  "Audio-tag backbone trainer (PyTorch)")
     rng = np.random.RandomState(cfg.train.seed)
     pooling = args.pooling or "avg"
     epochs: List[Dict] = []
 
-    model_dir = osp.join(cfg.data.exp_root, cfg.data.dataset_name, "model")
-    os.makedirs(model_dir, exist_ok=True)
     data = build_audio_tag_data(cfg, args)
     train_data, valid, mhe = data["train"], data["validation"], data["encoder"]
     bs = cfg.data.batch_size
@@ -1747,16 +1659,8 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc, timer = train_audio_tag_epoch(step, train_data, index_batches, dev)
-        means, n_steps = acc.means()  # the one fetch of the epoch
-        train_s = time.time() - t0
-        loss_mean = float(means.get("loss", float("nan")))
-        log.info(f"Epoch {epoch}: loss {loss_mean:.4f} ({n_steps} steps, {train_s:.1f}s) "
-                 f"{timer.summary()}; {fold_summary(folds0)}; {k4_summary(*k4, n_steps)}")
-        record.update(loss=loss_mean, steps=n_steps, train_s=train_s,
-                      data_wait_s=timer.data_time.sum)
-        if n_steps and not math.isfinite(loss_mean):
-            log.info("Loss is not finite, stopping training")
-            raise SystemExit(1)
+        _end_epoch(log, record, acc.totals(), acc.steps, timer, t0, folds0,
+                   f"; {k4_summary(*k4, acc.steps)}")
 
         t0 = time.perf_counter()
         rows = audio_tag_rows(model, valid, mhe, bs, dev)
@@ -1769,9 +1673,7 @@ def run_audio_tag(args, device: Optional[torch.device | str] = None) -> AudioTag
         record.update(val_s=time.perf_counter() - t0, f1=f1)
         log.info(f"AT clip macro F1: {f1:.4f}")
         if is_best:
-            t0 = time.perf_counter()
-            save_checkpoint(model_path, {"model": model.state_dict(), "epoch": epoch})
-            record["checkpoint_s"] = time.perf_counter() - t0
+            _save(record, model_path, {"model": model.state_dict(), "epoch": epoch})
     log.info(f"best AT model saved at {model_path}")
     return AudioTagResult(f1, epochs, model_dir=model_dir, checkpoint=model_path,
                           data_timings=data["timings"])

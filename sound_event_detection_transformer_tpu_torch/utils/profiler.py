@@ -9,11 +9,12 @@ keeps an epoch's data-time and batch-time meters and its spans.
 
 The spans, fixed names opened by the training loop and step:
 
-* ``train_lib.train_one_epoch``: ``train.epoch`` (the call), ``train.wait``
+* ``train_lib._epoch_loop``, the loop of ``train_one_epoch`` and
+  ``train_audio_tag_epoch``: ``train.epoch`` (the call), ``train.wait``
   (from a step's end to the next batch: the wait on the prefetch queue,
   which frees the batch before it; the first starts the prefetch thread),
-  ``train.gather`` (``FeatureBank.gather``), ``train.step`` (the step
-  call);
+  ``train.gather`` (``FeatureBank.gather``, with a bank), ``train.step``
+  (the step call);
 * ``engine.make_train_step``: ``train.augment``, ``train.forward`` (the
   model, with SP-SEDT's crop), ``train.criterion`` (``set_criterion``: the
   matching and its losses), ``train.backward``, ``train.optimizer``;
@@ -22,8 +23,7 @@ The spans, fixed names opened by the training loop and step:
 * ``data.dataset.batch_iterator``, on the prefetch thread: ``data.batch``
   (one batch's targets or patch boxes, collate and pin);
 * ``train_lib.make_audio_tag_step``: ``train.forward`` (the model and the
-  BCE), ``train.backward``, ``train.optimizer``; ``train_lib.
-  train_audio_tag_epoch``: ``train.epoch``, ``train.wait``, ``train.step``;
+  BCE), ``train.backward``, ``train.optimizer``;
 * ``ops.flash_attention``'s backward: ``attention.backward`` (K4's
   recompute of the plain attention and its gradient, on autograd's thread);
 * ``predict_cli.predict_batches``: ``predict.copy`` (a batch of waveforms
@@ -36,11 +36,10 @@ CUDA graph: a kernel's own time), ``record`` and ``busy_ms`` (the kernels'
 and copies' rows and time under the profiler: a path's device time),
 ``measure`` (both readings of one function, or the host clock on the CPU),
 ``kernel_kinds`` and ``trace_table`` (device time by kernel kind, from the
-profiler's rows or from a written trace), ``card_line`` and
-``semi_step_parts``.
+profiler's rows or from a written trace) and ``card_line``.
 
-The module imports no other module of the port at load, so that every
-layer can open spans.
+The module imports no other module of the port at load, and none of the
+layers above it at all, so that every layer can open spans.
 """
 from __future__ import annotations
 
@@ -54,7 +53,7 @@ import os
 import subprocess
 import threading
 import time
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 from torch.autograd import profiler as autograd_profiler
@@ -515,60 +514,3 @@ def trace_table(path: str, raw: bool = False, top: int = 30, all_planes: bool = 
             "total_ms": total / 1e3,
             "rows": [(k, us / 1e3, us / total if total else 0.0, n) for k, (us, n) in ranked]}
     return out
-
-
-# ------------------------------------------------------- the semi step's parts
-
-
-def semi_step_parts(model, teacher, weight_dict: Dict[str, float], cfg, optimizer, views,
-                    batch, flags, thr: torch.Tensor, gen, n_lab: int,
-                    timer: Callable[[Callable], float]) -> Dict[str, float]:
-    """The mean-teacher step's time by part, each part timed on its own by
-    ``timer(fn)`` (``busy_ms`` on the card), without the mixups: the
-    teacher's forward, the pseudo-labels, the merged forward and the
-    criterion (one joint solve), the backward (the forward, criterion and
-    backward less the forward and criterion), the optimizer and the EMA.
-    ``views`` are the step's (teacher, student) inputs; ``flags`` the
-    batch's (strong, weak, unlabel) rows, labeled ones first."""
-    from ..engine import get_pseudo_labels
-    from ..models import set_criterion, total_loss
-    from ..models.criterion import DenseTargets, joint_match
-    from ..parallel.optim import ema_update
-
-    m = cfg.model
-    lab, unl = slice(0, n_lab), slice(n_lab, None)
-    tf, sf = views
-    teacher_forward = lambda: teacher(tf[unl], batch.pad_mask[unl], deterministic=True)
-    with torch.no_grad():
-        tea_out = teacher_forward()
-    pseudo = lambda: get_pseudo_labels(tea_out, thr, batch.targets.orig_size[unl], m.max_events)
-    targets_l = DenseTargets(*(t[lab] for t in batch.targets))
-    targets = DenseTargets(*(torch.cat([x, y]) for x, y in zip(targets_l, pseudo()[0])))
-    strong, weak, unlabel = flags
-
-    def forward_criterion():
-        out = model(torch.cat([tf[lab], sf[unl]]), torch.cat([batch.pad_mask[lab],
-                                                             batch.pad_mask[unl]]),
-                    deterministic=False, generator=gen)
-        mres, aux = joint_match(out, targets, cfg.loss, cfg.train.focal_loss)
-        rows = lambda r: {k: (v[:, r] if k.startswith("aux_") else v[r]) for k, v in out.items()}
-        cut = lambda r: (type(mres)(*(x[r] for x in mres)), type(aux)(*(x[:, r] for x in aux)))
-        loss = 0.0
-        for r, t, s, w in ((lab, targets_l, strong[lab], weak[lab]),
-                           (unl, DenseTargets(*(x[n_lab:] for x in targets)), unlabel[unl],
-                            None)):
-            losses, _ = set_criterion(rows(r), t, s, w, m, cfg.loss, fl=cfg.train.focal_loss,
-                                      precomputed=cut(r))
-            loss = loss + total_loss(losses, weight_dict)
-        return loss
-
-    with torch.no_grad():
-        parts = {"teacher forward": timer(teacher_forward), "pseudo-labels": timer(pseudo)}
-    with torch.enable_grad():
-        parts["merged forward and criterion"] = timer(forward_criterion)
-        parts["backward"] = (timer(lambda: forward_criterion().backward())
-                             - parts["merged forward and criterion"])
-    parts["clip and AdamW"] = timer(optimizer.step)
-    parts["EMA"] = timer(lambda: ema_update(teacher.parameters(), model.parameters(),
-                                            cfg.train.ema_decay))
-    return parts

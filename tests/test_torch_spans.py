@@ -2,7 +2,8 @@
 host-clock totals, nested and from other threads, the span log read back by
 clock bounds, no dispatcher call with the profiler off, a
 ``user_annotation`` range under it, and the spans of one call of the
-training loop (``train_lib.train_one_epoch``) over two steps."""
+training loop over two steps, through each of its entry points
+(``train_lib.train_one_epoch`` and ``train_lib.train_audio_tag_epoch``)."""
 import json
 import subprocess
 import sys
@@ -18,6 +19,7 @@ from sound_event_detection_transformer_tpu_torch.data.dataset import (ConcatData
                                                                        MultiStreamBatchSampler)
 from sound_event_detection_transformer_tpu_torch.data.feature_bank import maybe_bank
 from sound_event_detection_transformer_tpu_torch.engine import init_train_state, make_train_step
+from sound_event_detection_transformer_tpu_torch.parallel.optim import make_audio_tag_optimizer
 from sound_event_detection_transformer_tpu_torch.utils import profiler
 from sound_event_detection_transformer_tpu_torch.utils.profiler import SPANS, annotate
 
@@ -30,6 +32,10 @@ TINY = ["--dataname", "urbansed", "--synthetic_smoke", "--smoke_clips", "4", "--
 LOOP = {"train.epoch": 1, "train.wait": 2, "train.gather": 2, "train.step": 2,
         "train.augment": 2, "train.forward": 2, "train.criterion": 2, "train.backward": 2,
         "train.optimizer": 2, "train.fetch": 1, "data.batch": 2}
+# the audio tagger's loop: no bank, no augmentation, no matching, and its
+# batches (``weak_batches``) open no ``data.batch``
+TAG_LOOP = {"train.epoch": 1, "train.wait": 2, "train.step": 2, "train.forward": 2,
+            "train.backward": 2, "train.optimizer": 2, "train.fetch": 1}
 
 
 class _Quiet:
@@ -123,8 +129,7 @@ def test_under_the_profiler_a_span_is_a_user_annotation(tmp_path):
     assert {"t.profiled", "t.other_thread"} <= set(SPANS.since(before))
 
 
-@pytest.fixture(scope="module")
-def loop():
+def _train_one_epoch():
     args = train_lib.get_parser().parse_args(TINY)
     cfg = train_lib.args_to_config(args)
     data = ConcatDataset([train_lib.build_synthetic_data(cfg, args)["train"]])
@@ -135,25 +140,48 @@ def loop():
     sampler = MultiStreamBatchSampler(data, [2], seed=0)
     bank = maybe_bank(args, data, cfg, dev)
     assert bank is not None and len(sampler) == 2
+    return lambda: train_lib.train_one_epoch(step, data, sampler, cfg, bank,
+                                             torch.Generator().manual_seed(0), _Quiet())
+
+
+def _train_audio_tag_epoch():
+    """A tiny ``AudioTagBackbone`` step on two batches of two clips."""
+    args = train_lib.get_parser().parse_args(TINY)
+    cfg = train_lib.args_to_config(args)
+    data = train_lib.build_audio_tag_data(cfg, args)["train"]
+    dev = torch.device("cpu")
+    model = train_lib.init_audio_tag_model(cfg, "avg", dev)
+    step = train_lib.make_audio_tag_step(model, make_audio_tag_optimizer(
+        model, 1e-4, 100, 2, train_lib.AT_CLIP_MAX_NORM))
+    return lambda: train_lib.train_audio_tag_epoch(step, data, [[0, 1], [2, 3]], dev)
+
+
+@pytest.fixture(scope="module", params=[(_train_one_epoch, LOOP),
+                                        (_train_audio_tag_epoch, TAG_LOOP)],
+                ids=["train_one_epoch", "train_audio_tag_epoch"])
+def loop(request):
+    """One call of an entry point of the training loop: (the spans it
+    opened, its step timer, the span counts it should open)."""
+    make, want = request.param
+    epoch = make()
     before = SPANS.totals()
-    acc, timer = train_lib.train_one_epoch(step, data, sampler, cfg, bank,
-                                           torch.Generator().manual_seed(0), _Quiet())
+    acc, timer = epoch()
     acc.means()
-    return SPANS.since(before), timer
+    return SPANS.since(before), timer, want
 
 
 def test_train_one_epoch_opens_every_span(loop):
-    spans, _ = loop
-    assert {k: v.count for k, v in spans.items()} == LOOP
+    spans, _, want = loop
+    assert {k: v.count for k, v in spans.items()} == want
 
 
 def test_step_timer_data_time_is_the_wait_spans(loop):
-    spans, timer = loop
+    spans, timer, want = loop
     assert (timer.data_time.count, timer.data_time.sum) == spans["train.wait"]
     assert timer.batch_time.count == 2
     assert timer.spans()["train.step"] == spans["train.step"]
     line = timer.summary()
-    assert all(f" {k.split('.')[1]} " in line for k in LOOP if k not in ("train.epoch",))
+    assert all(f" {k.split('.')[1]} " in line for k in want if k not in ("train.epoch",))
 
 
 def test_span_cost_tool_prints_its_line():

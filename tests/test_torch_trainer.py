@@ -157,6 +157,13 @@ def test_resume_reproduces_the_next_epoch(urbansed):
     assert got["val_f1"] == want["val_f1"]
     ck = checkpoint.load_checkpoint(str(tdir / "tiny_0"))
     assert ck["epoch"] == 0 and ck["optimizer"]["updates"] == 4
+    # the checkpoints' keys, which a resume of an older run's files reads
+    periodic = {"model", "optimizer", "epoch", "sampler", "generator", "save_best", "early"}
+    assert set(ck) == periodic
+    assert set(checkpoint.load_checkpoint(str(tdir / "tiny_1"))) == periodic
+    for m in (1, 2, 3):
+        best = checkpoint.load_checkpoint(str(tdir / f"tiny_{m}_best"))
+        assert set(best) == {"model", "epoch", f"event_based_f1_{m}"}
 
 
 def test_eval_runs_the_final_test_only(urbansed):

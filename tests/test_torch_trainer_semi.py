@@ -209,6 +209,11 @@ def test_resume_reproduces_the_next_epoch(smoke):
     assert [r["epoch"] for r in resumed.epochs] == [1]
     for key in ("loss_means", "pseudo_counts", "thresholds", "val_f1", "val_loss_means"):
         assert resumed.epochs[0][key] == result.epochs[1][key], key
+    # the resumed run writes the keys that it read (and that a resume of an
+    # older run's files reads)
+    assert set(checkpoint.load_checkpoint(f"{result.model_dir}/semi_1")) == {
+        "model", "teacher", "optimizer", "epoch", "classwise_threshold", "sampler", "generator",
+        "save_best", "early"}
 
 
 def test_eval_tests_the_best_teacher(smoke):

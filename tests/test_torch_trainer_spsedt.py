@@ -159,7 +159,11 @@ def test_resume_reproduces_the_next_epoch(smoke):
     assert resumed.epochs[0]["loss_means"] == result.epochs[1]["loss_means"]
     final = checkpoint.load_checkpoint(resumed.checkpoint)
     assert final["epoch"] == 2 and set(final) == {"model", "epoch"}
-    assert checkpoint.load_checkpoint(f"{result.model_dir}/pre_0")["optimizer"]["updates"] == 4
+    periodic = checkpoint.load_checkpoint(f"{result.model_dir}/pre_0")
+    assert periodic["optimizer"]["updates"] == 4
+    # the periodic checkpoints' keys, which a resume of an older run's files reads
+    assert set(periodic) == {"model", "optimizer", "epoch", "rng", "generator"}
+    assert set(checkpoint.load_checkpoint(f"{result.model_dir}/pre_1")) == set(periodic)
 
 
 @pytest.fixture(scope="module")

@@ -15,7 +15,7 @@ It prints the step's ms per step by CUDA events around back-to-back steps
 and its device ms per step under the profiler (``utils.profiler.busy_ms``),
 and with ``--components`` the device time of the teacher's forward, the
 pseudo-labels and the remainder (and the finer parts of
-``utils.profiler.semi_step_parts``), each with the card's name and power
+``semi_step_parts``), each with the card's name and power
 limit.
 
     python3 tools/profile_semi_torch.py [--batch 64] [--iters 10] [--components]
@@ -28,7 +28,7 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import torch
 
@@ -39,6 +39,7 @@ from sound_event_detection_transformer_tpu_torch import config as C  # noqa: E40
 from sound_event_detection_transformer_tpu_torch.engine import (  # noqa: E402
     Batch,
     TrainState,
+    get_pseudo_labels,
     init_train_state,
     make_semi_train_step,
     make_teacher,
@@ -46,14 +47,20 @@ from sound_event_detection_transformer_tpu_torch.engine import (  # noqa: E402
 from sound_event_detection_transformer_tpu_torch.models import (  # noqa: E402
     build_model,
     resolve_device,
+    set_criterion,
+    total_loss,
 )
+from sound_event_detection_transformer_tpu_torch.models.criterion import (  # noqa: E402
+    DenseTargets,
+    joint_match,
+)
+from sound_event_detection_transformer_tpu_torch.parallel.optim import ema_update  # noqa: E402
 from sound_event_detection_transformer_tpu_torch.utils.profiler import (  # noqa: E402
     Reading,
     busy_ms,
     card_of,
     host_ms,
     measure,
-    semi_step_parts,
 )
 
 THRESHOLD = 0.5
@@ -111,6 +118,55 @@ def semi_setup(cfg: C.SEDTConfig, device: torch.device) -> SemiSetup:
     thr = torch.full((cfg.model.num_classes,), THRESHOLD, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     return SemiSetup(state, teacher, wd, cfg, batch, views, flags, thr, gen, n_lab, step)
+
+
+def semi_step_parts(model, teacher, weight_dict: Dict[str, float], cfg, optimizer, views,
+                    batch, flags, thr: torch.Tensor, gen, n_lab: int,
+                    timer: Callable[[Callable], float]) -> Dict[str, float]:
+    """The mean-teacher step's time by part, each part timed on its own by
+    ``timer(fn)`` (``busy_ms`` on the card), without the mixups: the
+    teacher's forward, the pseudo-labels, the merged forward and the
+    criterion (one joint solve), the backward (the forward, criterion and
+    backward less the forward and criterion), the optimizer and the EMA.
+    ``views`` are the step's (teacher, student) inputs; ``flags`` the
+    batch's (strong, weak, unlabel) rows, labeled ones first."""
+    m = cfg.model
+    lab, unl = slice(0, n_lab), slice(n_lab, None)
+    tf, sf = views
+    teacher_forward = lambda: teacher(tf[unl], batch.pad_mask[unl], deterministic=True)
+    with torch.no_grad():
+        tea_out = teacher_forward()
+    pseudo = lambda: get_pseudo_labels(tea_out, thr, batch.targets.orig_size[unl], m.max_events)
+    targets_l = DenseTargets(*(t[lab] for t in batch.targets))
+    targets = DenseTargets(*(torch.cat([x, y]) for x, y in zip(targets_l, pseudo()[0])))
+    strong, weak, unlabel = flags
+
+    def forward_criterion():
+        out = model(torch.cat([tf[lab], sf[unl]]), torch.cat([batch.pad_mask[lab],
+                                                             batch.pad_mask[unl]]),
+                    deterministic=False, generator=gen)
+        mres, aux = joint_match(out, targets, cfg.loss, cfg.train.focal_loss)
+        rows = lambda r: {k: (v[:, r] if k.startswith("aux_") else v[r]) for k, v in out.items()}
+        cut = lambda r: (type(mres)(*(x[r] for x in mres)), type(aux)(*(x[:, r] for x in aux)))
+        loss = 0.0
+        for r, t, s, w in ((lab, targets_l, strong[lab], weak[lab]),
+                           (unl, DenseTargets(*(x[n_lab:] for x in targets)), unlabel[unl],
+                            None)):
+            losses, _ = set_criterion(rows(r), t, s, w, m, cfg.loss, fl=cfg.train.focal_loss,
+                                      precomputed=cut(r))
+            loss = loss + total_loss(losses, weight_dict)
+        return loss
+
+    with torch.no_grad():
+        parts = {"teacher forward": timer(teacher_forward), "pseudo-labels": timer(pseudo)}
+    with torch.enable_grad():
+        parts["merged forward and criterion"] = timer(forward_criterion)
+        parts["backward"] = (timer(lambda: forward_criterion().backward())
+                             - parts["merged forward and criterion"])
+    parts["clip and AdamW"] = timer(optimizer.step)
+    parts["EMA"] = timer(lambda: ema_update(teacher.parameters(), model.parameters(),
+                                            cfg.train.ema_decay))
+    return parts
 
 
 def components(s: SemiSetup, step: Reading) -> Dict[str, float]:
