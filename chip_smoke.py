@@ -61,7 +61,9 @@ nvcc for sm_90a, all started together), then:
 4b. drives the flagship supervised train step at batch 64 (``bench_torch``'s
    configuration and synthetic batch; dropout 0.1, bf16 autocast over f32
    parameters) through ``init_train_state`` and ``make_train_step``: K1 must
-   launch once per step and K4 never; every loss finite, the trainable
+   launch once per step and K4 never (by the launch counters, which a
+   replayed step moves by its capture's count, and by the K1 kernels in the
+   profiler's window of replayed steps); every loss finite, the trainable
    parameters moved, the frozen ones and every FrozenBN buffer unchanged bit
    for bit; it prints ms/step and clips/s (CUDA events and host clock), the
    peak memory, the device's busy share under the profiler and the step's
@@ -75,7 +77,9 @@ nvcc for sm_90a, all started together), then:
    batch 64, 3 epochs with the fine-tune stage from epoch 2, evaluation every
    epoch over 128 validation clips, fusion strategies 1-3, the final test
    with PSDS and ROC curves, a checkpoint every epoch): every epoch's loss
-   finite, the final test of each strategy, the feature bank in use, each
+   finite, the final test of each strategy, the feature bank in use, the
+   step's CUDA graph kept through the validations (only epoch 0 and the
+   fine-tune's first epoch warm up and capture), each
    best checkpoint loading back into the model, the ROC CSVs written, and K1
    launched exactly as the arguments call for (32 times in train steps, 18
    in eval steps) and K2, K3 and K4 never; it prints each epoch's wall time,
@@ -112,6 +116,15 @@ nvcc for sm_90a, all started together), then:
    under the profiler (``chiprun_out/spsedt_step_profile.txt``), the FLOP
    share of the bf16 peak, the patch crop's device time and K1's time on the
    step's own cost;
+4e'. runs the graphed train step (``engine.StepGraphs``) against the eager
+   one at both SEDT cells' widths, batch 32, 8 steps from the same weights,
+   generator and batches with the lr cut tenfold from update 4: 1 eager
+   call, 1 capture, 7 replays, K1 once a step, the dropout masks the eager
+   run's, the losses, trained leaves and AdamW's moments within 4 times
+   two eager runs' gap (bit for bit where those agree bit for bit); then
+   evaluations of the model after the third call and after three replays
+   more, each against a fresh copy's (the folded weights of the trained
+   convolutions, which a replay writes unseen, must not be stale);
 4f. drives the DCASE chain audio tags -> pretrain -> fine-tune -> semi at
    full width on disk: it writes a seeded DCASE layout (``SPSEDT_CLIPS``: 400
    unlabeled clips and 64 of each other split, cut from DCASE 2019's sizes),
@@ -264,14 +277,17 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -309,6 +325,7 @@ from sound_event_detection_transformer_tpu_torch.models import (
     set_criterion,
     total_loss,
 )
+from sound_event_detection_transformer_tpu_torch.models import transformer
 from sound_event_detection_transformer_tpu_torch.models.criterion import DenseTargets
 from sound_event_detection_transformer_tpu_torch.models.torch_import import (
     torchvision_resnet_shapes,
@@ -451,6 +468,19 @@ TINY_DISK = ["--data_root", TINY_DISK_ROOT, "--batch_size", "4", "--backbone", "
 SPSEDT_RECIPE = ["--dataname", "dcase", "--feature_recon", "--num_patches", "10",
                  "--num_queries", "20", "--enc_layers", "6", "--batch_size", "200", "--log"]
 SPSEDT_WARMUP = 3  # recipe steps before the timed ones
+# the graphed step against the eager one (phase 4e'): steps at each SEDT
+# cell's widths, the lr cut tenfold from update GRAPH_LR_DROP_AT on
+GRAPH_STEPS = 8
+GRAPH_BATCH = 32
+GRAPH_LR_DROP_AT = 4
+# the graphed run may lie this many times farther from the eager run than a
+# second eager run does (``run_gap``): bit for bit where two eager runs agree
+# bit for bit, as both cells' widths did on the H100
+GRAPH_GAP_FACTOR = 4.0
+# an evaluation between the graphed step's replays may lie this share of the
+# move between two evaluations from a fresh copy's (phase 4e'); the folds
+# are formed alike, so any gap is the convolutions' own
+EVAL_FOLD_SHARE = 0.01
 SPSEDT_STEPS = 5  # timed recipe steps
 SPSEDT_ROOT = "build/chip_spsedt_data"
 SPSEDT_EXP = "build/chip_spsedt_exp"
@@ -549,6 +579,18 @@ def reset_launch_counts() -> None:
         for name in vars(wrapper):
             if name.startswith("launches") or name == "backward_launches":
                 setattr(wrapper, name, 0)
+
+
+# K1's kernel on the device's timeline (``benchmark/metrics/k1_roofline.py``'s
+# pattern): ``jv_warp_kernel<1>``
+K1_KERNEL = re.compile(r"jv_warp_kernel<\s*1\s*[,>]")
+
+
+def traced_k1(rec: Recording) -> float:
+    """K1's kernels a call in a profiled window (``utils.profiler.record``),
+    as the device ran them: where the calls replay a CUDA graph, the launch
+    counters only repeat what the capture moved them by."""
+    return sum(n for k, _, n in rec.rows if K1_KERNEL.search(k)) / rec.calls
 
 
 def launch_counts() -> dict:
@@ -1427,12 +1469,18 @@ def counted_launches(call) -> tuple:
     return out, counts["K1"] - k1_eval, k1_eval, counts, costs
 
 
-def step_flops(step, batch, gen) -> int:
+def step_flops(model, wd, cfg: SEDTConfig, batch, gen) -> int:
     """The FLOPs of one train step as ``FlopCounterMode`` counts them on the
-    port's own step (matrix products and convolutions, forward and
-    backward)."""
+    port's own forward, criterion and backward (``make_loss_fn``: matrix
+    products and convolutions, forward and backward; a replayed step runs
+    no operator that a mode could count).  The gradients are zeroed after."""
+    loss_fn = make_loss_fn(model, wd, cfg)
+    boxes = batch.targets.boxes[:, :cfg.model.num_patches] if cfg.model.self_sup else None
     with FlopCounterMode(display=False) as counter:
-        step(batch, gen)
+        loss, _ = loss_fn(batch.feats, batch.pad_mask, batch.targets, batch.strong, batch.weak,
+                          gen, boxes)
+        loss.backward()
+    model.zero_grad(set_to_none=False)
     torch.cuda.synchronize()
     return counter.get_total_flops()
 
@@ -1497,7 +1545,7 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
     t0 = time.perf_counter()
     start.record()
     for _ in range(TRAIN_STEPS):
-        losses.append(step(batch, gen)["loss"])
+        losses.append(step(batch, gen)["loss"].clone())
     stop.record()
     stop.synchronize()
     host_s = (time.perf_counter() - t0) / TRAIN_STEPS
@@ -1526,12 +1574,16 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
           f"trainable parameters moved (not {sorted(set(trainable) - set(moved))}), "
           f"{len(frozen)} frozen ones and {len(buffers)} FrozenBN buffers unchanged; peak "
           f"memory {peak / 2**30:.3f} GiB ({card})")
-    flops = step_flops(step, batch, gen)
+    flops = step_flops(model, wd, cfg, batch, gen)
     print(f"train step: {flops / 1e9:.1f} GFLOP a step counted by FlopCounterMode, "
           f"{flops / batch_size / 1e9:.2f} GFLOP a clip; at {event_ms:.3f} ms that is "
           f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, {flops / (event_ms * 1e-3) / BF16_OPS_PER_S:.4f} "
           f"of the dense bf16 peak ({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s) ({card})")
-    profile(lambda: step(batch, gen), "train step", card, "train_step_profile.txt")
+    rec = profile(lambda: step(batch, gen), "train step", card, "train_step_profile.txt")
+    traced = traced_k1(rec)
+    assert traced == 1, f"the replayed train step ran K1 {traced} times a step on the card"
+    print(f"train step: K1 {traced:g} a replayed step in the profiler's window of {rec.calls} "
+          f"({step.graph.counts()}; {card})")
     split_train_step(model, wd, cfg, state.optimizer, batch, gen, card)
     timing = time_jv("K1", hungarian.lsap_lane, hungarian.lsap_plain, cost, card, 5, latency,
                      clock_hz)
@@ -1539,31 +1591,35 @@ def run_train_phases(dev: torch.device, card: str, latency: dict, clock_hz: floa
     # the fine-tune stage: relaxed matching, lr fixed at 1e-5
     ft_state = init_train_state(model, cfg, steps_per_epoch=100, fixed_lr=1e-5)
     ft_step = make_train_step(model, wd, cfg, ft_state.optimizer, fine_tune=True, device=dev)
-    ft_step(batch, gen)  # warm-up
-    reset_launch_counts()  # the fine-tune path: counts from here ...
-    ft, costs = with_lsap_costs(lambda: [ft_step(batch, gen)["loss"]
-                                         for _ in range(FINE_TUNE_STEPS)])
-    counts = launch_counts()  # ... to here
-    ft = torch.stack(ft).cpu()
-    assert torch.isfinite(ft).all(), ft
-    assert counts["K1"] == 2 * FINE_TUNE_STEPS and counts["K4"] == 0, counts
+    _, costs = with_lsap_costs(lambda: ft_step(batch, gen))  # warm-up, its costs kept
     shapes = [list(c.shape) for c in costs]
     want = [[batch_size, m.num_queries, m.max_events],
-            [(m.dec_layers - 1) * batch_size, m.num_queries, m.max_events]] * FINE_TUNE_STEPS
+            [(m.dec_layers - 1) * batch_size, m.num_queries, m.max_events]]
     assert shapes == want, shapes
+    reset_launch_counts()  # the fine-tune path: counts from here ...
+    ft = torch.stack([ft_step(batch, gen)["loss"].clone() for _ in range(FINE_TUNE_STEPS)]).cpu()
+    counts = launch_counts()  # ... to here
+    assert torch.isfinite(ft).all(), ft
+    assert counts["K1"] == 2 * FINE_TUNE_STEPS and counts["K4"] == 0, counts
+    ft_traced = traced_k1(record(lambda: ft_step(batch, gen)))
+    assert ft_traced == 2, f"the replayed fine-tune step ran K1 {ft_traced} times a step"
     print(f"fine-tune step (lr 1e-5): losses {ft.tolist()}, K1 {counts['K1']} launches in "
-          f"{FINE_TUNE_STEPS} steps at {shapes[:2]} ({card})")
+          f"{FINE_TUNE_STEPS} steps at {shapes}, {ft_traced:g} a replayed step in the "
+          f"profiler's window ({card})")
 
     # the DCASE recipe's augmentations, and a time mask
     aug_cfg = cfg.replace(augment=dataclasses.replace(
         cfg.augment, mix_up_ratio=0.6, time_mask=True, freq_mask=True, freq_shift=True))
     aug_step = make_train_step(model, wd, aug_cfg, state.optimizer, device=dev)
     reset_launch_counts()  # the augmented path: counts from here ...
-    aug = torch.stack([aug_step(batch, gen)["loss"] for _ in range(AUGMENT_STEPS)]).cpu()
+    aug = torch.stack([aug_step(batch, gen)["loss"].clone() for _ in range(AUGMENT_STEPS)]).cpu()
     counts = launch_counts()  # ... to here
     assert torch.isfinite(aug).all() and counts["K1"] == AUGMENT_STEPS, (aug, counts)
+    aug_traced = traced_k1(record(lambda: aug_step(batch, gen)))
+    assert aug_traced == 1, f"the replayed augmented step ran K1 {aug_traced} times a step"
     print(f"augmented step (mixup 0.6, time and frequency masks, frequency shift): losses "
-          f"{aug.tolist()}, K1 {counts['K1']} launches in {AUGMENT_STEPS} steps ({card})")
+          f"{aug.tolist()}, K1 {counts['K1']} launches in {AUGMENT_STEPS} steps, "
+          f"{aug_traced:g} a replayed step in the profiler's window ({card})")
     return {"launches": launches, "err": k1_err, "shape": list(cost.shape), "timing": timing}
 
 
@@ -1611,6 +1667,11 @@ def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: flo
     assert [r["fusion_strategy"] for r in result.final] == list(args.fusion_strategy)
     assert all(set(e["val_f1"]) == set(args.fusion_strategy) for e in epochs)
     assert result.bank, "the trainer did not hold its features in a bank"
+    # the step's graph lasts through the validations: only the first plain
+    # and the first fine-tune epoch (a new step) warm up and capture
+    graphs = [e["graph"] for e in epochs]
+    assert graphs == [(1, e["steps"] - 1, 1) if e["epoch"] in (0, args.epochs_ls)
+                      else (0, e["steps"], 0) for e in epochs], graphs
     cfg = train_lib.args_to_config(args)
     model, _ = build_model(cfg, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1639,7 +1700,8 @@ def run_trainer_phase(dev: torch.device, card: str, latency: dict, clock_hz: flo
               f"{t['eval_steps_s'] * 1e3:.3f} ms for {t['batches']} batches "
               f"({t['eval_steps_s'] / t['batches'] * 1e3:.3f} ms/batch), host decode "
               f"{t['decode_s'] * 1e3:.3f} ms, metrics {t['metrics_s'] * 1e3:.3f} ms; checkpoint "
-              f"I/O {e.get('checkpoint_s', 0.0):.3f} s; F1 {e['val_f1']} ({card})")
+              f"I/O {e.get('checkpoint_s', 0.0):.3f} s; F1 {e['val_f1']}; {e['graph'].line()} "
+              f"({card})")
     for r in result.final:
         v, t = r["valid_timings"], r["eval_timings"]
         ckpt_s += r.get("checkpoint_s", 0.0)
@@ -2386,7 +2448,7 @@ def run_spsedt_step_phase(dev: torch.device, card: str, latency: dict, clock_hz:
     t0 = time.perf_counter()
     start.record()
     for _ in range(SPSEDT_STEPS):
-        losses.append(step(batch, gen)["loss"])
+        losses.append(step(batch, gen)["loss"].clone())
     stop.record()
     stop.synchronize()
     host_s = (time.perf_counter() - t0) / SPSEDT_STEPS
@@ -2405,7 +2467,7 @@ def run_spsedt_step_phase(dev: torch.device, card: str, latency: dict, clock_hz:
           f"{moved} of {len(before['main'])} main leaves moved, {len(before['backbone'])} lr-0 "
           f"backbone leaves, {len(before['frozen'])} frozen ones and {len(before['buffers'])} "
           f"FrozenBN buffers unchanged bit for bit; peak memory {peak / 2**30:.3f} GiB ({card})")
-    flops = step_flops(step, batch, gen)
+    flops = step_flops(model, wd, cfg, batch, gen)
     print(f"SP-SEDT step: {flops / 1e9:.1f} GFLOP a step counted by FlopCounterMode, "
           f"{flops / bs / 1e9:.2f} GFLOP a clip with its patches; at {event_ms:.3f} ms that is "
           f"{flops / (event_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
@@ -2448,6 +2510,219 @@ def checked_pretrain_load(record: dict):
         return loaded
 
     return load
+
+
+# ------------------------------------------- the graphed step against eager
+
+
+@contextlib.contextmanager
+def first_dropout_spy():
+    """Each armed step's first dropout, ``[x, dropout(x)]``, copied into one
+    buffer on the device.  The copy is a kernel, so a captured step refills
+    the buffer on every replay.  Set ``spy.armed`` before each step;
+    ``spy.buf`` holds the pair after it."""
+    real = transformer.dropout
+    spy = types.SimpleNamespace(armed=False, buf=None)
+
+    def dropout(x, rate, generator, deterministic, shard=None):
+        out = real(x, rate, generator, deterministic, shard)
+        if spy.armed and not deterministic and rate > 0:
+            spy.armed = False
+            if spy.buf is None:
+                spy.buf = torch.empty((2, *x.shape), dtype=x.dtype, device=x.device)
+            spy.buf[0].copy_(x.detach())
+            spy.buf[1].copy_(out.detach())
+        return out
+
+    transformer.dropout = dropout
+    try:
+        yield spy
+    finally:
+        transformer.dropout = real
+
+
+def graph_cell_config(cell: str) -> SEDTConfig:
+    """The widths of a SEDT cell of the benchmark at ``GRAPH_BATCH``: the
+    URBAN-SED supervised recipe, or SP-SEDT's pretrain recipe."""
+    if cell == "sedt-urbansed":
+        return flagship_config(GRAPH_BATCH)
+    cfg = train_lib.spsedt_config(spsedt_args(SPSEDT_RECIPE))
+    return cfg.replace(data=dataclasses.replace(cfg.data, batch_size=GRAPH_BATCH))
+
+
+def graph_batches(cfg: SEDTConfig, dev: torch.device, seed: int) -> list:
+    """``GRAPH_STEPS`` seeded batches on the card."""
+    if cfg.model.self_sup:
+        host = [spsedt_batch(cfg, GRAPH_BATCH, seed + k) for k in range(GRAPH_STEPS)]
+    else:
+        host = make_batches(cfg, GRAPH_BATCH, GRAPH_STEPS, seed)[1]
+    return [Batch(b.feats.to(dev), b.pad_mask.to(dev), DenseTargets(*(t.to(dev) for t in b.targets)),
+                  b.strong.to(dev), b.weak.to(dev)) for b in host]
+
+
+def graph_run(cfg: SEDTConfig, batches: list, dev: torch.device, seed: int, graphed: bool,
+              drop: bool = True) -> dict:
+    """The train steps of ``cfg`` on ``batches``, from weights and a
+    generator seeded ``seed``, the lr cut tenfold from update
+    ``GRAPH_LR_DROP_AT`` on (with ``drop``): with the real optimizer
+    (graphed from the second step on) or behind
+    ``try_remat_torch.EagerOptimizer``.  Returns each step's loss and first
+    dropout, every trained leaf, its start and AdamW's moments after the
+    last step, the step's graph counts, K1's launches and the groups' final
+    lr tensors."""
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, adjust_lr=True,
+                                                lr_drop=1 if drop else 10 ** 6))
+    model, wd = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    state = init_train_state(model, cfg, steps_per_epoch=GRAPH_LR_DROP_AT)
+    opt = state.optimizer
+    step = make_train_step(model, wd, cfg,
+                           opt if graphed else try_remat_torch.EagerOptimizer(opt),
+                           augment_on=not cfg.model.self_sup, device=dev)
+    names = {id(p): n for n, p in model.named_parameters()}
+    start = {names[id(p)]: p.detach().clone() for p in opt.params}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k1 = hungarian.lsap_lane.launches
+    losses, drops = [], []
+    with first_dropout_spy() as spy:
+        for b in batches:
+            spy.armed = True
+            losses.append(step(b, gen)["loss"].clone())
+            drops.append(spy.buf.clone())
+    torch.cuda.synchronize()
+    out = {"losses": torch.stack(losses).cpu(), "drops": [d.cpu() for d in drops],
+           "leaves": {names[id(p)]: p.detach().cpu() for p in opt.params},
+           "start": {k: v.cpu() for k, v in start.items()},
+           "moments": {names[id(p)]: (opt.adamw.state[p]["exp_avg"].cpu(),
+                                      opt.adamw.state[p]["exp_avg_sq"].cpu()) for p in opt.params},
+           "counts": step.graph.counts(), "k1": hungarian.lsap_lane.launches - k1,
+           "lr": [float(t) for t in opt.lr]}
+    del step, state, opt, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_gap(a: dict, b: dict) -> float:
+    """How far run ``b`` lies from run ``a``: the largest of each step's loss
+    difference over the loss, the leaves' largest difference over the
+    largest change any leaf made, and each moment's largest difference over
+    its largest entry."""
+    gaps = [float(((b["losses"] - a["losses"]) / a["losses"]).abs().max())]
+    moved = max(float((a["leaves"][n] - a["start"][n]).abs().max()) for n in a["leaves"])
+    gaps.append(max(float((b["leaves"][n] - v).abs().max()) for n, v in a["leaves"].items())
+                / moved)
+    for n, moments in a["moments"].items():
+        for m_a, m_b in zip(moments, b["moments"][n]):
+            scale = float(m_a.abs().max())
+            if scale > 0:
+                gaps.append(float((m_b - m_a).abs().max()) / scale)
+    return max(gaps)
+
+
+def keep_masks(run: dict) -> list:
+    """Each step's dropout keep mask, and where it is known (x != 0)."""
+    return [(d[1] != 0, d[0] != 0) for d in run["drops"]]
+
+
+def graphed_step_against_eager(dev: torch.device, cell: str, seed: int) -> dict:
+    """``GRAPH_STEPS`` steps of the graphed train step against the eager one
+    at a SEDT cell's widths, from the same weights, generator seed and
+    batches, the lr cut from update ``GRAPH_LR_DROP_AT`` on.  The graphed
+    run must read 1 eager call, 1 capture and ``GRAPH_STEPS - 1`` replays,
+    launch K1 once a step and end at the cut lr; its dropout keep masks
+    must be the eager run's (where both inputs are non-zero) and differ
+    from one replay to the next; its losses, trained leaves and AdamW
+    moments must lie within ``GRAPH_GAP_FACTOR`` times the gap between two
+    eager runs of the eager run, and an eager run without the cut must lie
+    farther than 10 times that, and farther than 0.
+    Returns the gaps and the counts."""
+    cfg = graph_cell_config(cell)
+    batches = graph_batches(cfg, dev, seed)
+    eager = graph_run(cfg, batches, dev, seed, graphed=False)
+    again = graph_run(cfg, batches, dev, seed, graphed=False)
+    graphed = graph_run(cfg, batches, dev, seed, graphed=True)
+    uncut = graph_run(cfg, batches, dev, seed, graphed=False, drop=False)
+    n = GRAPH_STEPS
+    assert eager["counts"] == (0, 0, n) and graphed["counts"] == (1, n - 1, 1), (
+        eager["counts"], graphed["counts"])
+    assert eager["k1"] == graphed["k1"] == n, (eager["k1"], graphed["k1"])
+    assert graphed["lr"] == eager["lr"] != uncut["lr"], (graphed["lr"], eager["lr"])
+    masks, ref = keep_masks(graphed), keep_masks(eager)
+    for k, ((keep, known), (keep_e, known_e)) in enumerate(zip(masks, ref)):
+        both = known & known_e
+        assert both.float().mean() > 0.2 and torch.equal(keep[both], keep_e[both]), (
+            f"step {k}: the graphed step's dropout mask is not the eager step's")
+    both = masks[2][1] & masks[3][1]
+    assert not torch.equal(masks[2][0][both], masks[3][0][both]), "two replays drew one mask"
+    gaps = {"eager": run_gap(eager, again), "graph": run_gap(eager, graphed),
+            "uncut": run_gap(eager, uncut)}
+    tol = GRAPH_GAP_FACTOR * gaps["eager"]
+    assert gaps["graph"] <= tol, f"{cell}: graphed against eager {gaps}, tolerance {tol:.3g}"
+    assert gaps["uncut"] > max(10 * tol, 0.0), f"{cell}: the lr cut hides under the tolerance: {gaps}"
+    return {"gaps": gaps, "tol": tol, "counts": graphed["counts"], "k1": graphed["k1"],
+            "losses": graphed["losses"].tolist()}
+
+
+def evaluation_between_replays(dev: torch.device, seed: int) -> dict:
+    """The graphed supervised step at the URBAN-SED cell's widths (batch
+    ``GRAPH_BATCH``) with an evaluation's forward after its third call and
+    again after three replays more.  A replay writes the trained weights
+    without moving their version counters, and the evaluation caches the
+    trained convolutions' folded weights by them: each forward must be the
+    forward of a deep copy of the model as it is then (a copy's folds start
+    empty), within ``EVAL_FOLD_SHARE`` of how far the second forward lies
+    from the first; the graph must last through both evaluations (1 eager
+    call, 1 capture, 5 replays).  Returns each evaluation's gap to its copy
+    over the gap between the two evaluations, and the counts."""
+    cfg = graph_cell_config("sedt-urbansed")
+    batches = graph_batches(cfg, dev, seed)
+    model, wd = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    state = init_train_state(model, cfg, steps_per_epoch=100)
+    step = make_train_step(model, wd, cfg, state.optimizer, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = batches[0]
+
+    def forward() -> list:
+        """The model's forward and its fresh copy's, flattened."""
+        twin = copy.deepcopy(model)
+        with torch.inference_mode():
+            outs = [m(b.feats, b.pad_mask) for m in (model, twin)]
+        return [torch.cat([o[k].float().flatten() for k in ("pred_logits", "pred_boxes")])
+                for o in outs]
+
+    evals = []
+    for k in range(6):
+        step(batches[k], gen)
+        if k in (2, 5):
+            evals.append(forward())
+    counts = step.graph.counts()
+    moved = float((evals[1][0] - evals[0][0]).abs().max())
+    gaps = [float((own - fresh).abs().max()) / moved for own, fresh in evals]
+    assert counts == (1, 5, 1), counts
+    assert moved > 0 and max(gaps) <= EVAL_FOLD_SHARE, (
+        f"an evaluation between replays lies {gaps} of the step's move {moved:.3g} from a "
+        f"fresh copy's: stale folded weights")
+    del step, state, model
+    torch.cuda.empty_cache()
+    return {"gaps": gaps, "moved": moved, "counts": counts}
+
+
+def run_graph_phase(dev: torch.device, card: str) -> dict:
+    """Phase 4e': the graphed train step against the eager one at both SEDT
+    cells' widths (``graphed_step_against_eager``), and evaluations between
+    its replays (``evaluation_between_replays``)."""
+    r = evaluation_between_replays(dev, SEED)
+    print(f"evaluations between replays of the graphed sedt-urbansed step: each the forward of "
+          f"a fresh copy to {r['gaps']} of the move between them ({r['moved']:.3g}); "
+          f"{r['counts']} ({card})")
+    out = {"evaluation": r}
+    for cell in ("sedt-urbansed", "spsedt-dcase"):
+        out[cell] = r = graphed_step_against_eager(dev, cell, SEED)
+        g = r["gaps"]
+        print(f"graphed {cell} step, batch {GRAPH_BATCH}, {GRAPH_STEPS} steps against eager: "
+              f"gap {g['graph']:.3g} (two eager runs {g['eager']:.3g}, tolerance "
+              f"{r['tol']:.3g}; without the lr cut {g['uncut']:.3g}); {r['counts']}; K1 "
+              f"{r['k1']} launches; dropout masks the eager run's ({card})")
+    return out
 
 
 def run_spsedt_chain_phase(dev: torch.device, card: str) -> dict:
@@ -3803,6 +4078,10 @@ def main() -> None:
     # 4e. SP-SEDT: the recipe's bare step at batch 200
     spsedt = run_spsedt_step_phase(dev, card, latency, clock_hz)
     errs["K1"] = max(errs["K1"], spsedt["err"])
+    torch.cuda.empty_cache()
+
+    # 4e'. the graphed train step against the eager one at both SEDT cells' widths
+    run_graph_phase(dev, card)
     torch.cuda.empty_cache()
 
     # 4f. audio tags -> SP-SEDT pretrain -> fine-tune -> semi at full width on a DCASE layout

@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``engine.py``:
   Hungarian matching on kernel K1 or K2, backward, clip, two-group AdamW),
   and with a ``self_sup`` config the SP-SEDT step (the patch crops gathered
   on the device from the target boxes, the patch-query forward, the
-  criterion with the feature-reconstruction loss);
+  criterion with the feature-reconstruction loss); on one card it replays
+  the step as a CUDA graph (:class:`StepGraphs`);
 * ``make_eval_step``: the deterministic forward, the set criterion (one joint
   Hungarian solve of the final and aux decoder layers) and the fusion
   post-processing, with the same result dict;
@@ -42,17 +43,21 @@ student's by the EMA.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .config import SEDTConfig
 from .models import postprocess, resolve_device, set_criterion, total_loss
 from .models.criterion import DenseTargets, joint_match
-from .ops import augment
+from .models.resnet import FOLDS, FrozenBatchNorm
+from .ops import augment, hungarian
+from .ops.flash_attention import flash_attention
 from .ops.matcher import MatchResult
 from .ops.patches import extract_patches_device
 from .parallel.distribute import all_reduce_sum, data_world
@@ -184,6 +189,215 @@ def make_loss_fn(model: torch.nn.Module, weight_dict: Dict[str, float], cfg: SED
     return loss_fn
 
 
+# the kernel wrappers whose integer attributes count launches
+_COUNTED = (hungarian.lsap_lane, hungarian.lsap_block, hungarian.lsap_square, flash_attention)
+_SPLIT_STEP = SEDTOptimizer.step  # advance(), then update()
+
+
+def _counts() -> Dict[Tuple[Optional[int], str], int]:
+    """The Python counters that a step's launches move: each wrapper's
+    integer attributes (``lsap_*.launches*``, ``flash_attention.*``) keyed
+    (its index in ``_COUNTED``, name), and ``resnet.FOLDS`` keyed (None,
+    name)."""
+    out = {(i, k): v for i, fn in enumerate(_COUNTED) for k, v in vars(fn).items()
+           if type(v) is int}
+    out.update({(None, k): v for k, v in FOLDS.items()})
+    return out
+
+
+def _count_deltas(before: Dict) -> Dict:
+    return {k: v - before.get(k, 0) for k, v in _counts().items() if v != before.get(k, 0)}
+
+
+def _add_counts(deltas: Dict) -> None:
+    for (i, k), d in deltas.items():
+        if i is None:
+            FOLDS[k] += d
+        else:
+            setattr(_COUNTED[i], k, getattr(_COUNTED[i], k) + d)
+
+
+def graphs_engage(device: torch.device, optimizer) -> bool:
+    """Whether a train step on ``device`` with ``optimizer`` replays a CUDA
+    graph: on a CUDA device outside any process group (gloo captures
+    nothing, and DDP's reducer wants its own warm-up), with a
+    :class:`SEDTOptimizer` that updates on every call (``accumulate`` 1) and
+    whose ``step`` is its own ``advance`` then ``update``, which the graph
+    splits.  A duck-typed optimizer runs eagerly."""
+    return (device.type == "cuda" and not (dist.is_available() and dist.is_initialized())
+            and isinstance(optimizer, SEDTOptimizer) and optimizer.accumulate == 1
+            and getattr(optimizer.step, "__func__", None) is _SPLIT_STEP)
+
+
+def cuda_capture(run: Callable[[], Dict], generator: Optional[torch.Generator],
+                 stream) -> Tuple[object, Dict]:
+    """``run()`` captured into a new ``torch.cuda.CUDAGraph`` on ``stream``,
+    with ``generator`` registered so that each replay draws on from its
+    state, as an eager call would; the capture is thread-local, since the
+    prefetch thread pins host memory meanwhile.  Returns (the graph, what
+    ``run`` returned: tensors of the graph's pool)."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        out = run()
+    return graph, out
+
+
+class GraphCounts(NamedTuple):
+    """A train step's calls: ``captures`` (each replayed once at once),
+    ``replays`` (those included) and ``eager`` ones."""
+
+    captures: int
+    replays: int
+    eager: int
+
+    def since(self, before: "GraphCounts") -> "GraphCounts":
+        return GraphCounts(*(a - b for a, b in zip(self, before)))
+
+    def line(self) -> str:
+        """The epoch line's part; a replay's launch and fold counts are its
+        capture's (:class:`StepGraphs`)."""
+        return (f"graph: {self.replays} replays (counted as their capture), {self.captures} "
+                f"captures, {self.eager} eager")
+
+
+class _Graph(NamedTuple):
+    graph: object  # a torch.cuda.CUDAGraph
+    static: List[torch.Tensor]  # the inputs' buffers, which each replay refills
+    outputs: Dict[str, torch.Tensor]
+    deltas: Dict  # what one call moved the launch counters by
+
+
+class StepGraphs:
+    """The CUDA graph of one train step, for one input signature (the batch
+    tensors' shapes and dtypes, and the generator), and the step's counts of
+    its calls (:class:`GraphCounts`).
+
+    ``run(inputs, generator, update)`` is the step's work on device tensors,
+    ending in ``update()``.  Engaged (:func:`graphs_engage`), the first call
+    of a signature runs eagerly on a side stream: the warm-up, in which
+    cuDNN's plans, K1's library, the gradients, AdamW's state and the
+    FrozenBN folds come to be.  The second runs ``optimizer.advance`` on the
+    host, copies the batch into new static buffers, captures ``run`` with
+    ``optimizer.update`` on that stream (:func:`cuda_capture`), and replays
+    it.  Every later call runs ``advance``, copies the batch into the
+    buffers (nothing inside the graph copies from the host: a pinned batch
+    is freed by the prefetcher) and replays; the launch counters then move
+    by what the capture moved them, and the span ``train.replay`` stands for
+    the inner ``train.*`` spans.  A call of another signature drops the
+    graph and warms up again.  The graph holds the gradients, AdamW's state
+    and the FrozenBN folds by address: where the gradients, that state or a
+    fold are other tensors (a fold rebuilt in another dtype), or a parameter
+    or buffer was written outside the step (a load, another step's update),
+    since the step's last eager or captured call, the graph is dropped and
+    the signature warms up again.  A replay writes the trained parameters
+    without moving their version counters, so it drops the folded weights
+    of the trained convolutions, which an evaluation may have cached in
+    between.  Not engaged, every call runs eagerly on the current stream.
+
+    A replay's outputs are the graph's tensors: the next call overwrites
+    them.
+    """
+
+    def __init__(self, run: Callable, model: torch.nn.Module, optimizer, device: torch.device,
+                 engaged: bool):
+        self.run, self.optimizer, self.device, self.engaged = run, optimizer, device, engaged
+        self.watched = list(model.parameters()) + list(model.buffers())
+        self.folds = [m._fold for m in model.modules() if isinstance(m, FrozenBatchNorm)]
+        self.graph: Optional[_Graph] = None
+        self.key: Optional[tuple] = None  # the signature of the graph, or of its warm-up
+        self.held: Optional[tuple] = None  # what the graph reads and writes outside its pool
+        self.trained: List = []  # the folds of the convolutions that the step trains
+        self.captures = self.replays = self.eager = 0
+        self.stream = None
+
+    def counts(self) -> GraphCounts:
+        return GraphCounts(self.captures, self.replays, self.eager)
+
+    def __call__(self, inputs: List[torch.Tensor],
+                 generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        if not self.engaged:
+            return self._eager(inputs, generator)
+        key = (generator, tuple((tuple(t.shape), t.dtype) for t in inputs))
+        if self.graph is not None and key == self.key and self._same(self.held, self._holds()):
+            return self._replay(self.graph, inputs)
+        if self.graph is None and key == self.key:
+            out = self._capture(inputs, generator)
+        else:
+            self.graph, self.key = None, key
+            with self._side_stream():
+                out = self._eager(inputs, generator)
+        self.held = self._holds()
+        # under grad mode the step folds a trained convolution's weight
+        # afresh and drops the cached one (``resnet.conv_bn``)
+        self.trained = [f for f in self.folds if f.weight is None]
+        return out
+
+    def _holds(self) -> tuple:
+        opt = self.optimizer
+        folds = [t for f in self.folds for t in (f.w, f.b, f.weight)]
+        return ([p.grad for p in opt.params] + folds, opt.adamw.state,
+                [t._version for t in self.watched])
+
+    @staticmethod
+    def _same(a: tuple, b: tuple) -> bool:
+        # a tensor that was None at the last eager or captured call is none
+        # the graph reads: a trained convolution's fold weight, which the step
+        # drops and an evaluation caches
+        return (a[1] is b[1] and a[2] == b[2] and len(a[0]) == len(b[0])
+                and all(x is y for x, y in zip(a[0], b[0]) if x is not None))
+
+    def _stream(self):
+        """The side stream of the warm-ups and captures (None off CUDA)."""
+        if self.stream is None and self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+        return self.stream
+
+    @contextlib.contextmanager
+    def _side_stream(self):
+        side = self._stream()
+        if side is None:
+            yield
+            return
+        current = torch.cuda.current_stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            yield
+        current.wait_stream(side)
+
+    def _eager(self, inputs, generator) -> Dict[str, torch.Tensor]:
+        self.eager += 1
+        moved = [t.to(self.device, non_blocking=True) for t in inputs]
+        return self.run(moved, generator, self.optimizer.step)
+
+    def _capture(self, inputs, generator) -> Dict[str, torch.Tensor]:
+        self.optimizer.advance()
+        static = [torch.empty_like(t, device=self.device).copy_(t, non_blocking=True)
+                  for t in inputs]
+        before = _counts()
+        graph, out = cuda_capture(lambda: self.run(static, generator, self.optimizer.update),
+                                  generator, self._stream())
+        self.graph = _Graph(graph, static, out, _count_deltas(before))
+        self.captures += 1
+        self.replays += 1
+        with annotate("train.replay"):
+            graph.replay()
+        return out
+
+    def _replay(self, g: _Graph, inputs) -> Dict[str, torch.Tensor]:
+        self.optimizer.advance()
+        for buf, t in zip(g.static, inputs):
+            buf.copy_(t, non_blocking=True)
+        with annotate("train.replay"):
+            g.graph.replay()
+        for fold in self.trained:  # an evaluation's fold of the weights before this update
+            fold.drop_weight()
+        _add_counts(g.deltas)
+        self.replays += 1
+        return g.outputs
+
+
 def make_train_step(
     model: torch.nn.Module,
     weight_dict: Dict[str, float],
@@ -197,7 +411,8 @@ def make_train_step(
     device: Optional[torch.device | str] = None,
 ) -> Callable[[Batch, Optional[torch.Generator]], Dict[str, torch.Tensor]]:
     """The supervised step: ``step(batch, generator) -> metrics``, with the
-    device it runs on as ``step.device``.
+    device it runs on as ``step.device`` and its :class:`StepGraphs` as
+    ``step.graph``.
 
     The batch is moved to ``device`` (the GPU when None).  With
     ``frontend_fn`` (see :func:`.ops.frontend.make_frontend_fn`),
@@ -210,7 +425,16 @@ def make_train_step(
     metrics are ``{"loss", **losses}`` as tensors on the device; the step
     makes no host sync.  Its parts run in the spans ``train.augment``,
     ``train.forward``, ``train.criterion``, ``train.backward`` and
-    ``train.optimizer`` (:mod:`.utils.profiler`).
+    ``train.optimizer`` (:mod:`.utils.profiler`), or ``train.replay``.
+
+    On a CUDA device, with no process group and an optimizer that updates
+    on every call (:func:`graphs_engage`), the step from the second call of
+    an input signature on is one replayed CUDA graph (:class:`StepGraphs`):
+    the same kernels in the same order, the draws following the eager
+    sequence; the waveform frontend, which copies its scaler from the host
+    on every call, keeps the step eager.  A replayed step's metrics are the
+    graph's tensors, good until the next call: use them at once (add them
+    up, clone them or read them).
 
     In a process group, ``model`` is the DDP-wrapped model, the batch is
     this rank's share and the metrics are its partials (module docstring).
@@ -222,11 +446,10 @@ def make_train_step(
     world = data_world()
     loss_fn = make_loss_fn(model, weight_dict, cfg, fine_tune, normalize, fl, world)
 
-    def step(batch: Batch, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        to = lambda t: t.to(dev, non_blocking=True)
-        feats, pad_mask = to(batch.feats), to(batch.pad_mask)
-        targets = DenseTargets(*(to(t) for t in batch.targets))
-        strong, weak = to(batch.strong), to(batch.weak)
+    def run(inputs: List[torch.Tensor], generator: Optional[torch.Generator],
+            update: Callable[[], None]) -> Dict[str, torch.Tensor]:
+        feats, pad_mask, strong, weak, *target_parts = inputs
+        targets = DenseTargets(*target_parts)
         with torch.enable_grad(), same_bits_on_every_rank():
             if frontend_fn is not None:
                 with torch.no_grad():
@@ -241,10 +464,18 @@ def make_train_step(
             with annotate("train.backward"):
                 (loss * world if world > 1 else loss).backward()
         with annotate("train.optimizer"):
-            optimizer.step()
+            update()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
 
+    graphs = StepGraphs(run, model, optimizer, dev,
+                        graphs_engage(dev, optimizer) and frontend_fn is None)
+
+    def step(batch: Batch, generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        return graphs([batch.feats, batch.pad_mask, batch.strong, batch.weak, *batch.targets],
+                      generator)
+
     step.device = dev
+    step.graph = graphs
     return step
 
 

@@ -82,8 +82,9 @@ def loss_labels(
         mres.query_matched, _gather_tgt(targets.labels, mres.tgt_for_query).long(), num_classes
     )  # [B, Q]
     coef_b = torch.where(mres.query_matched, mres.coef, 1.0)
-    empty_weight = torch.ones(num_classes + 1, device=logits.device)
-    empty_weight[num_classes] = eos_coef
+    # the no-object class weighs eos_coef: a fill on the device (an item write
+    # copies its value from the host, which a CUDA graph cannot capture)
+    empty_weight = F.pad(torch.ones(num_classes, device=logits.device), (0, 1), value=eos_coef)
 
     if fl:
         onehot = F.one_hot(tgt_cls, num_classes + 1).float()

@@ -20,6 +20,11 @@ Counterpart of the JAX package's ``parallel/optim.py``:
 * StepLR or cosine schedules counted in optimizer updates, not micro-steps;
 * averaging gradient accumulation (optax ``MultiSteps``): the update comes on
   every k-th step, from the mean of the k gradients;
+* a step in two parts, so that a CUDA graph can replay the update: the host's
+  (the counts, and each group's lr from its schedule written into a
+  one-element tensor on the parameters' device) and the device's (the clip,
+  AdamW reading that tensor, the zeroed gradients), which
+  ``engine.make_train_step`` captures;
 * the mean-teacher EMA;
 * the audio-tag trainer's ``optax.chain(clip_by_global_norm, adam(staircase
   exponential decay))`` (:func:`make_audio_tag_optimizer`): the same
@@ -121,12 +126,19 @@ class SEDTOptimizer:
     """Clip by global norm, then AdamW over the ``main`` and ``backbone``
     groups, with averaging accumulation over ``accumulate`` steps.
 
-    Call :meth:`step` after each backward.  It counts the micro-step; on
-    every ``accumulate``-th one it averages the summed gradients, clips them,
-    sets each group's lr from its schedule at the update count, updates and
-    zeroes the gradients.  ``clip_max_norm=None`` skips the clip;
-    ``decoupled=False`` makes the torch optimizer (``adamw``) an Adam whose
-    weight decay is added to the gradient (L2) instead of AdamW's.
+    Call :meth:`step` after each backward: :meth:`advance`, the host's part,
+    then on an update step :meth:`update`, the device's.  ``advance`` counts
+    the micro-step; on every ``accumulate``-th one it sets each group's lr
+    from its schedule at the update count, on the host and in the group's
+    one-element tensor ``lr`` on the parameters' device.  ``update`` averages
+    the summed gradients, clips them, runs AdamW at the tensors' lr and
+    zeroes the gradients, with no host sync and no host value that changes
+    from step to step, so a CUDA graph captures it once and replays it after
+    each ``advance``.  The tensors are f32 where the fused CUDA kernel reads
+    them (it reads a float) and f64 elsewhere, so that the CPU's AdamW
+    computes with the schedule's own double.  ``clip_max_norm=None`` skips
+    the clip; ``decoupled=False`` makes the torch optimizer (``adamw``) an
+    Adam whose weight decay is added to the gradient (L2) instead of AdamW's.
     """
 
     def __init__(self, groups: Dict[str, List[torch.nn.Parameter]],
@@ -138,19 +150,43 @@ class SEDTOptimizer:
         # the parameters cut over the model axis (parallel.mesh.shard_model)
         self.sharded = [getattr(p, "model_shard_dim", None) is not None for p in self.params]
         self.schedules = [schedules[label] for label in labels]
+        fused = self.params[0].is_cuda
         opt = torch.optim.AdamW if decoupled else torch.optim.Adam
         self.adamw = opt(
             [{"params": groups[label], "lr": schedules[label](0)} for label in labels],
-            betas=betas, eps=1e-8, weight_decay=weight_decay, fused=self.params[0].is_cuda)
+            betas=betas, eps=1e-8, weight_decay=weight_decay, fused=fused)
+        lr_dtype = torch.float32 if fused else torch.float64
+        self.lr = [torch.tensor(sched(0), dtype=lr_dtype, device=self.params[0].device)
+                   for sched in self.schedules]
         self.clip_max_norm = clip_max_norm
         self.accumulate = accumulate
         self.micro_steps = 0  # calls of step()
         self.updates = 0  # optimizer updates: the schedules' count
 
     def step(self) -> None:
+        if self.advance():
+            self.update()
+
+    def advance(self) -> bool:
+        """The host's part of a step: counts the micro-step and, on an update
+        step, sets each group's lr (host value and device tensor, the tensor
+        by a launch on the current stream) and counts the update.  Returns
+        whether this step updates."""
         self.micro_steps += 1
         if self.micro_steps % self.accumulate:
-            return
+            return False
+        for group, sched, lr in zip(self.adamw.param_groups, self.schedules, self.lr):
+            group["lr"] = sched(self.updates)
+            lr.fill_(group["lr"])
+        self.updates += 1
+        return True
+
+    def update(self) -> None:
+        """The device's part of an update: every leaf gets a gradient (a zero
+        one where it has none) and decays, as in optax; the accumulated
+        gradients are averaged and clipped; AdamW runs at the ``lr`` tensors
+        (capturable while the stream captures); the gradients are zeroed in
+        place, so a captured backward accumulates into the same tensors."""
         for p in self.params:  # every leaf decays on every update, as in optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -159,11 +195,17 @@ class SEDTOptimizer:
             torch._foreach_div_(grads, float(self.accumulate))
         if self.clip_max_norm is not None:
             clip_by_global_norm_(grads, self.clip_max_norm, self.sharded)
-        for group, sched in zip(self.adamw.param_groups, self.schedules):
-            group["lr"] = sched(self.updates)
-        self.adamw.step()
+        groups = self.adamw.param_groups
+        host_lr = [group["lr"] for group in groups]
+        capturing = self.params[0].is_cuda and torch.cuda.is_current_stream_capturing()
+        for group, lr in zip(groups, self.lr):
+            group.update(lr=lr, capturable=capturing)
+        try:
+            self.adamw.step()
+        finally:  # the groups keep host values, which state_dict saves
+            for group, lr in zip(groups, host_lr):
+                group.update(lr=lr, capturable=False)
         self.adamw.zero_grad(set_to_none=False)
-        self.updates += 1
 
     def state_dict(self) -> Dict:
         """AdamW's state and the two counts; a checkpoint keeps it for

@@ -1048,12 +1048,14 @@ def run_supervised(args, device: Optional[torch.device | str] = None) -> TrainRe
             fine_tune_stage()
             train_step = make_step()
 
-        t0, folds0 = time.time(), FOLDS.copy()
+        t0, folds0, graph0 = time.time(), FOLDS.copy(), train_step.graph.counts()
         lr_now = (1e-5 if epoch >= args.epochs_ls
                   else cfg.train.lr if not cfg.train.adjust_lr
                   else cfg.train.lr * cfg.train.lr_drop_gamma ** (epoch // cfg.train.lr_drop))
         acc, timer = train_one_epoch(train_step, concat, sampler, cfg, train_bank, gen, log)
-        means = _end_epoch(log, record, acc.totals(), acc.steps, timer, t0, folds0)
+        record["graph"] = train_step.graph.counts().since(graph0)
+        means = _end_epoch(log, record, acc.totals(), acc.steps, timer, t0, folds0,
+                           f"; {record['graph'].line()}")
         class_error = float(means.get("class_error", 0.0))
         _log_stats(log, means, weight_dict, class_error=class_error, lr=lr_now)
         record.update(loss_means=dict(means, loss=record["loss"], class_error=class_error),
@@ -1188,12 +1190,13 @@ def run_spsedt(args, device: Optional[torch.device | str] = None) -> PretrainRes
     for epoch in range(start_epoch, args.epochs):
         record: Dict = {"epoch": epoch}
         epochs.append(record)
-        t0, folds0 = time.time(), FOLDS.copy()
+        t0, folds0, graph0 = time.time(), FOLDS.copy(), train_step.graph.counts()
         order = rng.permutation(len(train_data))
         index_batches = [order[b * bs:(b + 1) * bs].tolist() for b in range(len(order) // bs)]
         acc, timer = train_one_epoch(train_step, train_data, index_batches, cfg, bank, gen, log)
+        record["graph"] = train_step.graph.counts().since(graph0)
         record["loss_means"] = _end_epoch(log, record, acc.totals(), acc.steps, timer, t0,
-                                          folds0)
+                                          folds0, f"; {record['graph'].line()}")
         _save_periodic(record, cfg, osp.join(model_dir, cfg.train.info), epoch, model,
                        state.optimizer, gen, {"rng": rng})
     final: Dict = {}

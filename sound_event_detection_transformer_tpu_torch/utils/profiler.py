@@ -17,7 +17,9 @@ The spans, fixed names opened by the training loop and step:
   (the step call);
 * ``engine.make_train_step``: ``train.augment``, ``train.forward`` (the
   model, with SP-SEDT's crop), ``train.criterion`` (``set_criterion``: the
-  matching and its losses), ``train.backward``, ``train.optimizer``;
+  matching and its losses), ``train.backward``, ``train.optimizer`` on its
+  eager calls and captures; ``train.replay`` (a CUDA graph's replay, which
+  runs those parts without their spans);
 * ``meters.DeviceMetricAccumulator``: ``train.fetch`` (the meter's one
   device-to-host copy, which waits for the device);
 * ``data.dataset.batch_iterator``, on the prefetch thread: ``data.batch``
@@ -186,8 +188,8 @@ class annotate:
 
 
 # the spans of one training step, in the order the epoch line prints them
-STEP_SPANS = ("train.wait", "train.gather", "train.step", "train.augment", "train.forward",
-              "train.criterion", "train.backward", "train.optimizer")
+STEP_SPANS = ("train.wait", "train.gather", "train.step", "train.replay", "train.augment",
+              "train.forward", "train.criterion", "train.backward", "train.optimizer")
 
 
 class StepTimer:

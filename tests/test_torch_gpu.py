@@ -22,7 +22,11 @@ matmuls in a different order.  Dropout on the card from an explicit CUDA
 generator: the same seed gives the same mask, and the keep share lies
 within 5 standard deviations of its binomial share.  The train step
 launches K1 once (plain matching) or twice (fine-tune matching: the final
-layer, then the aux layers).  SP-SEDT: the patch crop on the card against
+layer, then the aux layers).  The graphed train step at both SEDT cells'
+widths against the eager step: losses, trained leaves and AdamW's moments
+within 4 times two eager runs' gap of each other, the dropout masks the
+eager run's, an lr cut reaching the replays; evaluations between its
+replays against a fresh copy of the model.  SP-SEDT: the patch crop on the card against
 the CPU to 1e-5; two tiny SP-SEDT steps on the card against the CPU to
 1e-3; one step launches K1 once and leaves the lr-0 backbone leaves bit for
 bit.  The audio-tag step: two tiny updates on the card against the CPU, TF32
@@ -391,6 +395,26 @@ def test_k1_launches_per_train_step(cuda, fine_tune, launches):
     torch.cuda.synchronize()
     assert hungarian.lsap_lane.launches - before == launches
     assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["sedt-urbansed", "spsedt-dcase"])
+def test_graphed_step_matches_eager(cuda, cell):
+    """The graphed train step against the eager one at a SEDT cell's widths
+    (``chip_smoke.graphed_step_against_eager``, which raises on any miss):
+    8 steps from the same weights, generator and batches through an lr cut
+    at update 4; 1 eager call, 1 capture, 7 replays and K1 8 times."""
+    r = chip_smoke.graphed_step_against_eager(cuda, cell, seed=1)
+    assert r["counts"] == (1, 7, 1) and r["k1"] == 8
+
+
+@pytest.mark.gpu
+def test_evaluations_between_replays_see_the_trained_weights(cuda):
+    """An evaluation after the graphed step's replays folds the trained
+    convolutions' weights as they are then, and the graph lasts through it
+    (``chip_smoke.evaluation_between_replays``, which raises on any miss)."""
+    r = chip_smoke.evaluation_between_replays(cuda, seed=1)
+    assert r["counts"] == (1, 5, 1) and max(r["gaps"]) <= chip_smoke.EVAL_FOLD_SHARE
 
 
 @pytest.mark.gpu

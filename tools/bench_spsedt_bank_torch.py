@@ -95,7 +95,7 @@ def run_loop(s: TrainSetup, ds, batches: list, bank=None) -> tuple:
                                         pin_memory=s.step.device.type == "cuda"))
     losses = []
     for batch in loop:
-        losses.append(s.step(batch, s.gen)["loss"])
+        losses.append(s.step(batch, s.gen)["loss"].clone())  # a replay overwrites it
     losses = torch.stack(losses).cpu()  # the barrier
     return time.perf_counter() - t0, losses
 

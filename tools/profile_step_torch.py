@@ -15,7 +15,10 @@ and AdamW), ``backbone``, ``criterion_only`` and the difference
 The JAX tool subtracts ``forward_eval`` from ``forward_plus_criterion`` for
 ``criterion_only``; here that would be the difference of two host-bound
 readings, which came out negative on the card, so the criterion is timed
-on its own on one forward's outputs.
+on its own on one forward's outputs.  On the card ``train_step`` times the
+step as the trainer runs it, from its second call a replayed CUDA graph
+(``engine.StepGraphs``); the other rows call the model, ``make_loss_fn``,
+the criterion and the optimizer themselves.
 
 Every row has two readings: ms per call by CUDA events around back-to-back
 calls (``utils.profiler.cuda_ms``), which is the host's issue time whenever
@@ -46,6 +49,7 @@ from sound_event_detection_transformer_tpu_torch.config import SEDTConfig  # noq
 from sound_event_detection_transformer_tpu_torch.engine import (  # noqa: E402
     Batch,
     init_train_state,
+    make_loss_fn,
     make_train_step,
 )
 from sound_event_detection_transformer_tpu_torch.models import (  # noqa: E402
@@ -134,8 +138,8 @@ def compute_autocast(cfg: SEDTConfig, device: torch.device):
 
 def step_rows(s: TrainSetup, iters: int, step_only: bool = False) -> Dict[str, Reading]:
     """Every row of the JAX tool (see the module docstring).  Besides the
-    rows' calls, one more train step runs, whose cost ``matcher_batch``
-    solves."""
+    rows' calls, one more training forward and criterion runs
+    (``make_loss_fn``), whose cost ``matcher_batch`` solves."""
     dev = s.step.device
     rows = {"train_step": measure(s.run, iters, dev)}
     if step_only:
@@ -157,7 +161,10 @@ def step_rows(s: TrainSetup, iters: int, step_only: bool = False) -> Dict[str, R
         out = model(b.feats, b.pad_mask)
         rows["criterion_only"] = measure(lambda: total_loss(set_criterion(
             out, b.targets, b.strong, b.weak, cfg.model, cfg.loss)[0], s.wd), iters, dev)
-    _, (cost,) = with_lsap_costs(s.run)
+    loss_fn = make_loss_fn(model, s.wd, cfg)
+    with torch.no_grad():  # the step's training forward: a replayed step runs no Python
+        _, (cost,) = with_lsap_costs(lambda: loss_fn(b.feats, b.pad_mask, b.targets, b.strong,
+                                                      b.weak, s.gen))
     rows["matcher_batch"] = measure(lambda: hungarian.lsap_lane(cost), iters, dev, graph=True)
     rows["forward_backward"] = measure(forward_backward, iters, dev)
     rows["optimizer_update"] = measure(s.optimizer.step, iters, dev)

@@ -26,7 +26,8 @@ baseline's and the generator ends where the baseline leaves it.  Before any
 timing the tool holds each variant's first step against ``baseline``'s in
 f32 (the loss to 1e-5 of it, every gradient to 1e-3 of its leaf's largest
 entry, the generator's state after the step exactly), then times each
-variant: ms per step by CUDA events, device ms per step under the profiler,
+variant's step, eagerly (a variant's own generator is nothing a CUDA graph
+can hold, so the baseline runs so too): ms per step by CUDA events, device ms per step under the profiler,
 the peak memory, with the card's name and power limit.
 
     python3 tools/try_remat_torch.py [--batch 64] [--iters 20]
@@ -176,12 +177,26 @@ def check_variants(s: TrainSetup) -> dict:
     return out
 
 
+class EagerOptimizer:
+    """An optimizer behind a duck type, so that ``make_train_step`` runs its
+    step eagerly (``engine.graphs_engage``).  Every variant's step runs so:
+    a ``Remat`` forward draws from a generator of its own, which no CUDA
+    graph can hold, and the baseline is timed as the variants are."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+
+    def step(self) -> None:
+        self.optimizer.step()
+
+
 def time_variants(s: TrainSetup, iters: int) -> dict:
-    """{variant: (Reading of a step, peak memory in bytes or None)}."""
+    """{variant: (Reading of an eager step, peak memory in bytes or None)}."""
     dev = s.step.device
     out = {}
     for v in VARIANTS:
-        step = make_train_step(variant_model(s.model, v), s.wd, s.cfg, s.optimizer, device=dev)
+        step = make_train_step(variant_model(s.model, v), s.wd, s.cfg,
+                               EagerOptimizer(s.optimizer), device=dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         r = measure(lambda: step(s.batch, s.gen), iters, dev)
